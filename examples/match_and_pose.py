@@ -1,7 +1,7 @@
 """Minimal library usage example (A4 parity, source/examples/).
 
 Match one stereo pair and estimate its relative pose in ~20 lines —
-the TPU-native counterpart of the reference's matchinglibcmd example.
+the JAX counterpart of the reference's matchinglibcmd example.
 
 Run:  python examples/match_and_pose.py [image_dir]
 (defaults to the reference's bundled KITTI stereo pair)

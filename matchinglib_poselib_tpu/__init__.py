@@ -1,13 +1,13 @@
-"""matchinglib_poselib_tpu — TPU-native sparse matching and pose estimation.
+"""matchinglib_poselib_tpu — Batched sparse matching and pose estimation.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the C++
 reference `josefmaierfl/matchinglib_poselib` (feature detection/description/
 matching + robust relative pose estimation + refinement + bundle adjustment +
-rectification + continuous stereo pose refinement), re-designed TPU-first:
+rectification + continuous stereo pose refinement), re-designed accelerator-first:
 
 - fixed-shape, masked, batched arrays everywhere (no pointer-chasing)
 - minimal solvers (5pt/8pt/homography) batched over thousands of hypotheses
-- robust estimation as massive hypothesis batches scored densely on the MXU
+- robust estimation as massive hypothesis batches scored densely as matmuls
 - descriptor matching as tiled Hamming/L2 distance-matrix kernels (Pallas)
 - scale-out via jax.sharding Mesh axes ("pairs", "db") and XLA collectives
 
@@ -18,9 +18,9 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# Geometry/solver math needs true f32 matmuls: the TPU default (bf16 MXU
-# passes) introduces ~1e-3 error, which breaks essential-matrix SVDs and
-# rotation orthonormality. Kernels that tolerate or exploit bf16 (descriptor
+# Geometry/solver math needs true f32 matmuls: a reduced-precision default
+# (bf16 or TF32 passes) introduces ~1e-3 error, which breaks
+# essential-matrix SVDs and rotation orthonormality. Kernels that tolerate or exploit bf16 (descriptor
 # Hamming/L2 distance matrices) request lower precision explicitly.
 _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -7,7 +7,7 @@ keep those exact encodings (poselib-test/main.cpp):
   PROSAC beta / sample prevalidation / degeneracy handling / estimator /
   inner-refinement. Digits 1-3 configure SPRT+prevalidation, which the
   batched engine subsumes (dense scoring needs no SPRT or
-  prevalidation) — they are accepted and recorded but have no TPU
+  prevalidation) — they are accepted and recorded but have no batched
   equivalent; digits 4-6 map to real engine options.
 - --refineRT, 2 digits [default 22] (main.cpp:339-354): linear
   refinement algorithm + weighting.
@@ -33,6 +33,9 @@ from matchinglib_poselib_tpu.config import (
     RobustConfig,
     StereoRefineConfig,
 )
+from matchinglib_poselib_tpu.utils.compile_cache import (  # noqa: F401
+    enable_compile_cache,
+)
 
 
 def add_matching_options(p: argparse.ArgumentParser):
@@ -49,7 +52,7 @@ def add_matching_options(p: argparse.ArgumentParser):
     p.add_argument("--refineGMS", action="store_true")
     p.add_argument("--DynKeyP", action="store_true",
                    help="dynamic keypoint response filtering (always on: "
-                        "the TPU detector is grid-filtered by design)")
+                        "the detector is grid-filtered by design)")
     p.add_argument("--f_nr", type=int, default=2048, help="max features")
     p.add_argument("--subPixRef", action="store_true")
     p.add_argument("--showNr", type=int, default=50)

@@ -34,6 +34,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    common.enable_compile_cache()
     import jax.numpy as jnp
 
     from matchinglib_poselib_tpu.models import pipeline

@@ -376,6 +376,7 @@ def _filestorage_frames(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    common.enable_compile_cache()
     import jax
 
     pose_args = argparse.Namespace(**vars(args))

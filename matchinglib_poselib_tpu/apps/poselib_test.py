@@ -39,6 +39,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    common.enable_compile_cache()
     import jax
     import jax.numpy as jnp
 

@@ -4,7 +4,7 @@ The reference ships a separate repo (matchinglib_poselib_ros,
 README.md:769-777) whose node continuously reads stereo images,
 calculates matches and poses with the library, and exposes every
 pipeline option through a launch file plus dynamic-reconfigure updates
-at runtime. This module is that interface for the TPU framework:
+at runtime. This module is that interface for this framework:
 
 - ``params_to_configs``: the launch-file / dynamic-reconfigure flat
   parameter namespace -> the typed config tree (config.py). Parameter

@@ -77,7 +77,7 @@ class DetectorConfig:
     # semantics — and group the output by column band, which lets patch
     # extraction contract against a static 128-wide window instead of
     # the full image width (features.extract_patches bands path; the
-    # largest MXU op of the fused step shrinks ~11x)
+    # largest matmul of the fused step shrinks ~11x)
     column_bands: int = 16
 
 
@@ -198,7 +198,7 @@ class RefinementConfig:
     inlier_loss_guard: bool = True
     # final (R,t)-manifold Gauss-Newton Sampson polish after pose recovery
     # (the decisive accuracy step on real data: Levenberg-Marquardt over the
-    # 5-DOF pose, the TPU equivalent of the reference's nonlinear post-
+    # 5-DOF pose, the equivalent of the reference's nonlinear post-
     # refinement; see refine.polish_pose_sampson)
     polish_rt: bool = True
     # LM converges in well under 6 steps per round from the warm starts the
@@ -251,8 +251,8 @@ class PoseConfig:
 class StereoRefineConfig:
     """Continuous stereo refinement (reference: stereo_pose_refinement.h:100-176).
 
-    Field-for-field mirror of ``ConfigPoseEstimation`` where meaningful on
-    TPU; the correspondence pool is a fixed-capacity SoA array.
+    Field-for-field mirror of ``ConfigPoseEstimation`` where meaningful
+    here; the correspondence pool is a fixed-capacity SoA array.
     """
 
     # pool
@@ -293,7 +293,7 @@ class StereoRefineConfig:
     refine_pool: RefinementConfig = RefinementConfig(
         refine_max_points=4096, polish_max_points=4096
     )
-    # TPU-framework extension (not in the reference): after pool
+    # Extension (not in the reference): after pool
     # refinement, adapt the pose to the CURRENT frame with a short LM
     # polish seeded at the pool pose (guarded against drift). The pool
     # pose is the mean over the aggregation window and floors at the

@@ -1,7 +1,7 @@
 """Checkpoint / resume of the StereoRefine streaming state (SURVEY.md §5.4).
 
 The reference persists nothing (its only outputs are match files and result
-CSVs); for long-running TPU streaming this module adds save/restore of the
+CSVs); for long-running streaming this module adds save/restore of the
 full `StereoRefine` state — the correspondence pool arrays, the pose/ratio
 history, the state-machine counters, and the PRNG key — so a stream can be
 stopped and resumed bit-exactly.

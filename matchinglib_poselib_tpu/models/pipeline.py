@@ -456,7 +456,7 @@ class StereoPipeline:
 
         vmaps the full detect->describe->match->pose program over the pair
         axis — the data-parallel unit that `parallel.mesh` shards over the
-        'pairs' axis on a TPU pod. One compiled program serves any stream
+        'pairs' axis across devices. One compiled program serves any stream
         of same-shaped batches.
         """
         corr = jax.vmap(

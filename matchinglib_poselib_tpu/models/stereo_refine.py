@@ -1,6 +1,6 @@
 """Continuous stereo pose refinement: the streaming framework.
 
-TPU-native re-design of poselib::StereoRefine (SURVEY.md P14, §3.4;
+Batched re-design of poselib::StereoRefine (SURVEY.md P14, §3.4;
 reference: poselib/source/stereo_pose_refinement.cpp, header
 stereo_pose_refinement.h:100-178 ConfigPoseEstimation):
 
@@ -271,7 +271,7 @@ def _track_frame_pose(
 ):
     """Current-frame adaptation of the pool-refined pose.
 
-    TPU-framework extension beyond the reference (refinePoseFromPool
+    Extension beyond the reference (refinePoseFromPool
     returns the pool pose unmodified, stereo_pose_refinement.cpp:1767):
     the pool pose is the mean pose over the aggregation window, so on a
     rig with real per-frame pose jitter it floors at the jitter radius

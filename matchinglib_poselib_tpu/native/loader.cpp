@@ -2,7 +2,7 @@
 //
 // Fills the role of the reference's C++ IO layer
 // (tests/matchinglib-test/io_data.cpp, 845 LoC: image/sequence loading for
-// the CLIs) for the TPU framework: decoded frames land in pinned host
+// the CLIs) for this framework: decoded frames land in pinned host
 // buffers as float32 grayscale in [0, 1], ready for device transfer. A
 // std::thread pool overlaps decode of the next frames with device compute
 // (the streaming pipeline's host-side stage).

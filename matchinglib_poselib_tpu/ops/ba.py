@@ -1,6 +1,6 @@
 """Bundle adjustment: batched Levenberg-Marquardt with per-point Schur elimination.
 
-TPU-native equivalent of the reference's SBA wrapper layer (SURVEY.md P10/P11):
+Batched equivalent of the reference's SBA wrapper layer (SURVEY.md P10/P11):
 
 - SBAdriver::perform_sba (poselib/source/BA_driver.cpp:1878) driving
   sba_motstr_levmar(_x) / sba_mot_levmar(_x) (BA_driver.cpp:2245-2325) with
@@ -13,13 +13,13 @@ TPU-native equivalent of the reference's SBA wrapper layer (SURVEY.md P10/P11):
 - modes BA_MOTSTRUCT / BA_MOT / BA_STRUCT / BA_MOT_MOTSTRUCT and the
   least-squares / pseudo-Huber cost choice (BA_driver.h:69-82).
 
-Design (sequential sparse CPU solver -> batched dense-block TPU solver):
+Design (sequential sparse CPU solver -> batched dense-block solver):
 
 - The reference's compressed sparse Schur machinery exists because CPU SBA
-  must avoid touching absent observations. On TPU we keep a *dense* masked
+  must avoid touching absent observations. Here we keep a *dense* masked
   observation tensor (P points x C cameras x 2) — the visibility mask zeroes
   absent terms and every block operation becomes one batched einsum on the
-  MXU/VPU.
+  matmul/elementwise.
 - Points have 3 dof, so their Hessian blocks V_p are 3x3 and eliminated in
   closed form (batched Cramer inverse). The reduced camera system
   S = U - sum_p W_p V_p^-1 W_p^T is (C*D, C*D) dense (C is a small window),

@@ -1,7 +1,7 @@
 """Extended descriptor family: ring-pattern binary, RIFF, BOLD.
 
 Gives the reference's descriptor long tail (SURVEY.md M3/M10/M11) real
-TPU implementations instead of registry aliases:
+Batched implementations instead of registry aliases:
 
 - ring_pattern_descriptor — concentric-ring sampling with short-distance
   pairwise comparisons: the BRISK/FREAK-class binary descriptor
@@ -17,7 +17,7 @@ TPU implementations instead of registry aliases:
   compute_patch): per-patch bit stability masks from affine-rotated
   re-tests; matching uses the two-way masked Hamming distance, expressed
   as ONE dense dot product via a signed/masked embedding so it still
-  rides the MXU.
+  rides a matmul.
 
 All samplers run on the already-extracted (K, P, P) patch tensor —
 bilinear gathers batched over keypoints, no per-keypoint loops.
@@ -266,7 +266,7 @@ def bold_distance_matrix(
     """Two-way masked Hamming: d(a, b) = ham(a, b | mask_a) +
     ham(a, b | mask_b) (bold.cpp matching rule).
 
-    MXU form: with s in {-1,+1} and m in {0,1},
+    Matmul form: with s in {-1,+1} and m in {0,1},
     ham(a,b|m_a) = (sum m_a - <s_a m_a, s_b>) / 2, so the full distance
     is one dot product of the augmented embeddings
     u = [-s_a m_a, -s_a, sum(m_a), 1], v = [s_b, s_b m_b, 1, sum(m_b)]:

@@ -1,7 +1,7 @@
 """Learned-family descriptors: LATCH, BoostDesc (BGM/LBGM/BINBOOST), VGG,
 plus the classical DAISY and SURF-64 float descriptors.
 
-TPU-native equivalents of the reference's xfeatures2d descriptor rows
+Batched equivalents of the reference's xfeatures2d descriptor rows
 (SURVEY.md M3; createExtractor features.cpp:849-971). The OpenCV versions of
 LATCH/BoostDesc/VGG ship binary blobs of trained parameters that are not
 reproducible here; these implementations keep the exact *structure*,
@@ -12,7 +12,7 @@ DAISY and SURF-64 are faithful implementations (their parameters are
 published constants, not training artifacts).
 
 All functions take (K, P, P) pre-extracted patches + per-keypoint angles
-and are pure fixed-shape jnp — vmap/jit friendly, einsum-heavy so the MXU
+and are pure fixed-shape jnp — vmap/jit friendly, einsum-heavy so matmuls
 does the pooling work.
 """
 
@@ -332,7 +332,7 @@ def surf64_descriptor(
     """SURF 64-d (features.cpp SURF row): 4x4 subregions of Gaussian-weighted
     (sum dx, sum dy, sum |dx|, sum |dy|) in the keypoint frame, normalized.
     Identical structure to Bay et al.; Haar wavelets become central
-    differences (exact in the continuous limit, cheaper on TPU).
+    differences (exact in the continuous limit, cheaper).
     """
     from matchinglib_poselib_tpu.ops.nonlinear_diffusion import msurf_descriptor
 

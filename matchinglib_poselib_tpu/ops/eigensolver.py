@@ -1,6 +1,6 @@
 """Kneip eigensolver: direct rotation optimization for relative pose.
 
-TPU-native equivalent of OpenGV's `eigensolver` used by the reference as a
+Batched equivalent of OpenGV's `eigensolver` used by the reference as a
 minimal/nonminimal solver option (EssentialMatEstimator.h:501,669 via
 opengv::relative_pose::eigensolver; RefineAlg PR_KNEIP rows of
 pose_linear_refinement.cpp and pose_estim.h:67-77).
@@ -15,7 +15,7 @@ noise-free case) a zero eigenvalue with eigenvector t. The solver finds
 Here R is parameterized by a Cayley vector around the current estimate and
 minimized with a fixed-iteration damped Newton loop; gradients/Hessians
 come from `jax.grad`/`jax.hessian` of the smallest eigenvalue of the 3x3 M
-(closed-form eigensolve on TPU via jnp.linalg.eigh on 3x3 — tiny, batched).
+(closed-form eigensolve via jnp.linalg.eigh on 3x3 — tiny, batched).
 Everything is fixed-shape and fully differentiable; vmap over batches of
 problems for hypothesis-style use.
 """

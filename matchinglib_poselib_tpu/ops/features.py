@@ -1,16 +1,16 @@
 """Feature frontend: corner detection, orientation, descriptors.
 
-TPU-native equivalent of the reference's detector/descriptor factories
+Batched equivalent of the reference's detector/descriptor factories
 (SURVEY.md M2/M3; features.cpp:145-379 getKeypoints, :397-484
 getDescriptors, :506-770 responseFilterGridBased, :792-847 createDetector,
 :849-971 createExtractor). The reference delegates to OpenCV's 10 detectors
-and 22 descriptors; here the registry provides TPU-shaped families covering
+and 22 descriptors; here the registry provides fixed-shape families covering
 both descriptor datatypes the matchers consume:
 
 - detection: FAST segment-test score, Harris, Shi-Tomasi — all as shifted
-  elementwise comparisons / separable convolutions (VPU work, no gathers),
+  elementwise comparisons / separable convolutions (elementwise work, no gathers),
   with reduce_window NMS and per-grid-cell top-k retention (the exact
-  TPU-shaped analogue of the reference's grid-based response filtering).
+  fixed-shape analogue of the reference's grid-based response filtering).
 - orientation: ORB's intensity-centroid moments over the keypoint patch.
 - descriptors: rotation-steered BRIEF-256 (binary, Hamming-matched, the
   ORB/BRISK/FREAK family representative) and a SIFT-like 128-d gradient
@@ -75,7 +75,7 @@ def fast_score(img: jax.Array, threshold: float = 20.0 / 255.0) -> jax.Array:
     differences over the qualifying arc (OpenCV's FAST score semantics).
 
     Bandwidth-lean formulation (the naive one materialized f32 flag/score
-    stacks worth ~1 GB HBM per frame — the dominant bandwidth consumer of
+    stacks worth ~1 GB device memory per frame — the dominant bandwidth consumer of
     the fused pipeline step): scores accumulate as relu sums directly (a
     ring pixel contributes to the bright score iff diff > t, which is
     exactly relu(diff - t) > 0 — no mask stacks), comparisons live as
@@ -86,7 +86,7 @@ def fast_score(img: jax.Array, threshold: float = 20.0 / 255.0) -> jax.Array:
     # per-position 2D arrays, never a stacked (16, H, W) tensor: the
     # explicit stack defeats XLA's pointwise fusion under vmap — the
     # batched program materialized the f32[B, 16, H, W] ring (~730 MB at
-    # B=16 images) plus matching pred stacks, which alone cost more HBM
+    # B=16 images) plus matching pred stacks, which alone cost more device memory
     # time than the whole single-image detect
     diffs = [
         _shift2d(img, int(dy), int(dx)) - img for dy, dx in _FAST_RING
@@ -118,7 +118,7 @@ def fast_score(img: jax.Array, threshold: float = 20.0 / 255.0) -> jax.Array:
 
 
 def _sobel(img: jax.Array):
-    """Sobel gradients via shifted sums (VPU friendly)."""
+    """Sobel gradients via shifted sums (elementwise)."""
     p = lambda dy, dx: _shift2d(img, dy, dx)
     gx = (
         (p(0, -1) - p(0, 1)) * 2.0
@@ -187,7 +187,7 @@ def select_keypoints_grid(
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Grid-capped top-k keypoint selection.
 
-    The TPU-shaped analogue of the reference's adaptive grid response filter
+    The fixed-shape analogue of the reference's adaptive grid response filter
     (responseFilterGridBased, features.cpp:506): the image is divided into
     roughly `grid_cells^2` cells; each cell may contribute at most
     ceil(2 * max_keypoints / n_cells) keypoints; the global top
@@ -273,7 +273,7 @@ def select_keypoints_banded(
     every keypoint in band b lies within a static 128-wide column window
     of the image, which shrinks the patch-extraction contraction from
     the full image width to one lane tile (90.5 -> 8.3 GFLOP at
-    2048 kp x 1392 px — the largest single MXU op of the fused step).
+    2048 kp x 1392 px — the largest single matmul of the fused step).
     """
     H, W = score.shape
     ys = jnp.arange(H)[:, None]
@@ -349,10 +349,8 @@ def select_keypoints_banded(
 def _topk_small(x: jax.Array, k: int):
     """Exact top-k along the last axis by iterative max extraction.
 
-    For tiny k the TPU top_k custom call is dominated by its sort-network
-    setup (~250 us at (1056, 688) k=4 in the fused step); k rounds of
-    max/argmax/mask are plain VPU reduces (~10x cheaper) and bit-exact,
-    ties resolved to the lowest index like lax.top_k.
+    k rounds of max/argmax/mask: plain reductions in place of a sort,
+    bit-exact, ties resolved to the lowest index like lax.top_k.
     """
     if k > 8:
         return jax.lax.top_k(x, k)
@@ -404,19 +402,18 @@ def extract_patches(
 ):
     """(K, patch, patch) patches centered on integer keypoint locations.
 
-    MXU formulation: patch_k = RowSel_k @ img @ ColSel_k^T with one-hot
-    selector matrices, computed as two batched bf16 einsums. On TPU this is
-    ~20x faster than an arbitrary gather (XLA gathers serialize; one-hot
-    matmuls are exactly what the MXU is for). bf16 selectors are exact
+    Matmul formulation: patch_k = RowSel_k @ img @ ColSel_k^T with one-hot
+    selector matrices, computed as two batched bf16 einsums in place of an
+    arbitrary gather. bf16 selectors are exact
     (0/1); the image is rounded to bf16 (~3 decimal digits — immaterial for
     intensity comparisons and gradient histograms).
 
     bands > 0 (CONTRACT: keypoints came from select_keypoints_banded
     with the same band count, i.e. slot k's keypoint lies in column band
     k // (K/bands)): the column contraction runs per band against a
-    static 128-wide window instead of the full image width — 90.5 ->
-    8.3 GFLOP at 2048 kp x 1392 px, the largest MXU saving available in
-    the fused step. Keypoints violating the contract get clamped
+    static 128-wide window instead of the full image width (90.5 ->
+    8.3 GFLOP at 2048 kp x 1392 px, counted from the shapes). Keypoints
+    violating the contract get clamped
     (wrong) patches — callers enable this only for banded selections.
     """
     if bands > 0 and xy.shape[0] % bands == 0:
@@ -431,10 +428,7 @@ def extract_patches(
     rsel = jax.nn.one_hot(rows, H, dtype=jnp.bfloat16)  # (K, P, H)
     csel = jax.nn.one_hot(cols, W, dtype=jnp.bfloat16)  # (K, P, W)
     # contract the LONG image axis (W) first: the intermediate is
-    # (K, P, H) instead of (K, P, W) — 2.7x smaller on wide images, and
-    # it dodges the layout-fix copy XLA inserts between the two dots in
-    # the H-first order (profiled: 2.36 ms -> 1.67 ms per 2048 patches
-    # at 1392x512)
+    # (K, P, H) instead of (K, P, W), 2.7x smaller on wide images
     tmp = jnp.einsum(
         "kcw,hw->kch",
         csel,
@@ -531,7 +525,7 @@ _BRIEF_PTS = jnp.asarray(_brief_pattern())  # (256, 2, 2) as (dx, dy)
 # ORB-style discretized rotations: precompute integer sample offsets for
 # N_ANGLE_BINS rotations of the pattern (OpenCV ORB uses 30 x 12deg bins and
 # rounded rotated offsets — features.cpp's ORB extractor does exactly this).
-# Sampling then becomes one bf16 selection matmul per bin on the MXU instead
+# Sampling then becomes one bf16 selection matmul per bin as matmuls instead
 # of per-keypoint gathers.
 _N_ANGLE_BINS = 30
 _PATCH_FOR_TABLE = 31
@@ -561,7 +555,7 @@ _ORB_SEL = jnp.asarray(
 def _bilinear_sample_image(img: jax.Array, x: jax.Array, y: jax.Array):
     """Bilinear sample arbitrary-shaped float coords from a (H, W) image.
 
-    Four fused gathers — TPU-friendly (no per-keypoint loops).
+    Four fused gathers — batch-friendly (no per-keypoint loops).
     """
     H, W = img.shape
     x = jnp.clip(x, 0.0, W - 1.001)
@@ -597,7 +591,7 @@ def brief_descriptor_orb(
     The binary-family representative (ORB/BRISK/FREAK/LATCH registry rows
     in features.cpp:849-971 map here). The keypoint angle is quantized to
     one of 30 bins (OpenCV ORB semantics); sampling all bins is one
-    bf16 selection einsum on the MXU, then the keypoint's bin is mixed out
+    bf16 selection einsum as matmuls, then the keypoint's bin is mixed out
     with a one-hot contraction — no gathers anywhere.
     """
     K, P, _ = patches.shape
@@ -826,19 +820,7 @@ def detect_keypoints(img: jax.Array, cfg: DetectorConfig) -> Keypoints:
             n_levels=cfg.pyramid_levels, scale_factor=cfg.pyramid_scale,
             harris_rank=kind == "ORB", grid_cells=cfg.grid_cells,
         )
-    if kind in ("FAST", "ORB", "BRISK") and jax.default_backend() == "tpu":
-        # fused Pallas score+NMS (ops/pallas/fast.py): one pass over row
-        # tiles in VMEM instead of several elementwise HBM round trips
-        # (~0.36 -> ~0.05 ms/image at 1392x512). Equal to the XLA path
-        # up to f32-reassociation ties in the NMS window.
-        from matchinglib_poselib_tpu.ops.pallas import fast as _pfast
-
-        score = _pfast.fast_nms_score(
-            img, cfg.fast_threshold / 255.0, cfg.nms_radius
-        )
-    else:
-        score = _DETECTOR_FNS[kind](img, cfg)
-        score = nms(score, cfg.nms_radius)
+    score = nms(_DETECTOR_FNS[kind](img, cfg), cfg.nms_radius)
     if detector_bands(cfg):
         xy, sc, mask = select_keypoints_banded(
             score, cfg.max_keypoints, bands=cfg.column_bands,

@@ -1,6 +1,6 @@
 """Correspondence filters: GMS grid voting, SOF flow statistics, VFC.
 
-TPU-native equivalents of the reference's match-filter stack:
+Batched equivalents of the reference's match-filter stack:
 
 - GMS (Grid-based Motion Statistics): reference wraps vendored gms-1.0
   (matchinglib/source/gms.cpp:54-84, thirdparty/gms-1.0/src/MatchGMS.cpp).
@@ -198,6 +198,19 @@ def _partition_median_batch(
     return jnp.where(n[None] > 0, med, jnp.zeros_like(med))
 
 
+def _segment_sums(vals: jax.Array, seg: jax.Array, num_segments: int):
+    """Per-segment sums over the last axis as one dense masked reduction.
+
+    vals, seg: (..., N), seg in [0, num_segments). A scatter-add
+    (jax.ops.segment_sum) adds with atomics on a GPU, so the program does
+    not fix the order of the f32 additions, nor the rounding of each sum;
+    the reduction here has a fixed order. The (num_segments, N) mask is
+    small at SOF sizes (~85 cells x 2048 points).
+    """
+    onehot = seg[..., None, :] == jnp.arange(num_segments)[:, None]
+    return jnp.sum(jnp.where(onehot, vals[..., None, :], 0.0), axis=-1)
+
+
 def _partition_moments_batch(
     vals: jax.Array, cell: jax.Array, valid: jax.Array, C: int,
     trim: bool = True,
@@ -223,24 +236,14 @@ def _partition_moments_batch(
             ) + 1e-6
         )
     kf = keep.astype(jnp.float32)
-    # per-row segment sums via row-offset segment ids over the flat array
     seg = jnp.where(keep, cell[None], C).astype(jnp.int32)
-    seg = seg + (C + 1) * jnp.arange(B, dtype=jnp.int32)[:, None]
-    n = jax.ops.segment_sum(
-        kf.reshape(-1), seg.reshape(-1), num_segments=B * (C + 1)
-    ).reshape(B, C + 1)[:, :C]
-    n = jnp.maximum(n, 1.0)
-    s1 = jax.ops.segment_sum(
-        (vals * kf).reshape(-1), seg.reshape(-1), num_segments=B * (C + 1)
-    ).reshape(B, C + 1)[:, :C]
+    n = jnp.maximum(_segment_sums(kf, seg, C + 1)[:, :C], 1.0)
+    s1 = _segment_sums(vals * kf, seg, C + 1)[:, :C]
     mean = s1 / n
     dv = vals - jnp.take_along_axis(
         mean, jnp.broadcast_to(cell_c[None], (B, N)), axis=1
     )
-    s2 = jax.ops.segment_sum(
-        (dv * dv * kf).reshape(-1), seg.reshape(-1),
-        num_segments=B * (C + 1),
-    ).reshape(B, C + 1)[:, :C]
+    s2 = _segment_sums(dv * dv * kf, seg, C + 1)[:, :C]
     return med, mean, jnp.sqrt(s2 / n)
 
 
@@ -263,13 +266,11 @@ def _partition_moments(
         keep = valid & (dev <= half[jnp.clip(cell, 0, C - 1)] + 1e-6)
     kf = keep.astype(jnp.float32)
     seg = jnp.where(keep, cell, C).astype(jnp.int32)
-    n = jnp.maximum(
-        jax.ops.segment_sum(kf, seg, num_segments=C + 1)[:C], 1.0
-    )
-    s1 = jax.ops.segment_sum(vals * kf, seg, num_segments=C + 1)[:C]
+    n = jnp.maximum(_segment_sums(kf, seg, C + 1)[:C], 1.0)
+    s1 = _segment_sums(vals * kf, seg, C + 1)[:C]
     mean = s1 / n
     dv = vals - mean[jnp.clip(cell, 0, C - 1)]
-    s2 = jax.ops.segment_sum(dv * dv * kf, seg, num_segments=C + 1)[:C]
+    s2 = _segment_sums(dv * dv * kf, seg, C + 1)[:C]
     return med, mean, jnp.sqrt(s2 / n)
 
 
@@ -629,7 +630,7 @@ def sof_predict_knn(
     the distance to the neighborhood (the reference grows radii with
     distance-to-support the same way inside interpolStatOptFlow,
     match_statOptFlow.cpp:2266 — this is that mechanism freed from the
-    grid). Dense masked top-k — no trees, TPU shapes static.
+    grid). Dense masked top-k — no trees, static shapes.
 
     Returns (pred (N,2), rad (N,), ok (N,) bool — false when fewer than
     3 seeds exist at all).
@@ -640,10 +641,8 @@ def sof_predict_knn(
         (query_pts[:, None, :] - seed_pts1[None, :, :]) ** 2, axis=-1
     )
     d2 = jnp.where(seedb[None, :], d2, jnp.inf)
-    # approx_max_k: the TPU-tiled top-k (exact top_k costs ~1 ms at
-    # 2048x2048 — the single most expensive op of the fused step when
-    # this fallback went in); a >=0.95-recall neighbor set is
-    # statistically indistinguishable for median/MAD flow statistics
+    # approx_max_k: a >=0.95-recall neighbor set is statistically
+    # indistinguishable for median/MAD flow statistics
     neg, idx = jax.lax.approx_max_k(
         -d2, k, recall_target=0.95
     )  # (N, k) nearest seeds

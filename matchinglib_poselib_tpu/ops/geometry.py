@@ -1,6 +1,6 @@
 """Core epipolar / camera geometry kernels.
 
-TPU-native equivalents of the reference's helper layer
+Batched equivalents of the reference's helper layer
 (poselib/source/pose_helper.cpp — SURVEY.md P12/P13/P6-math):
 
 - Sampson error               (pose_helper.cpp:115 SampsonL1)
@@ -19,7 +19,7 @@ TPU-native equivalents of the reference's helper layer
 Design: every function is pure jnp over arrays whose leading dimensions are
 arbitrary batch dims ("..."), so the same code serves one pair, a hypothesis
 batch, or a sharded pair batch. No data-dependent shapes; variable-length
-point sets carry a boolean/float mask. Float32 throughout (TPU-native);
+point sets carry a boolean/float mask. Float32 throughout;
 accumulation-sensitive reductions are explicitly f32.
 """
 
@@ -101,7 +101,7 @@ def undistort_oulu(
 
     Reference: pose_helper.cpp:1169 Remove_LensDist -> :1241 LensDist_Oulu
     (fixed-point iteration; the reference iterates to tolerance, we use a
-    fixed iteration count — TPU-static control flow).
+    fixed iteration count — static control flow).
 
     pts: (..., N, 2) normalized (distorted) coords.
     dist: (..., 5) [k1, k2, p1, p2, k3].
@@ -305,7 +305,7 @@ def quat_from_rot(R: jax.Array) -> jax.Array:
 
     Branch-free Shepperd-style selection (reference MatToQuat,
     pose_helper.cpp:861 uses the same 4-case selection with branches; we
-    compute all four candidates and pick by the largest pivot — TPU-static).
+    compute all four candidates and pick by the largest pivot — static).
     """
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
@@ -444,10 +444,9 @@ def masked_stats(x: jax.Array, mask: jax.Array):
 
 
 def _solve3_cramer(A, b):
-    """Batched 3x3 solve via the adjugate (closed form, pure VPU math).
+    """Batched 3x3 solve via the adjugate (closed form, pure elementwise math).
 
-    A: (..., 3, 3), b: (..., 3). TPU-native: avoids LU, which serializes
-    for tiny batched systems.
+    A: (..., 3, 3), b: (..., 3). Avoids LU for tiny batched systems.
     """
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -474,8 +473,8 @@ def triangulate_linear(R, t, x1, x2):
 
     Cameras P1 = [I|0], P2 = [R|t]; x1, x2 normalized coords (..., N, 2).
     Solves the inhomogeneous 4x3 DLT system (w = 1) by 3x3 normal equations
-    with a closed-form Cramer solve — fully vectorized VPU math (a batched
-    4x4 eigendecomposition costs ~100x more on TPU). Reference equivalent:
+    with a closed-form Cramer solve — fully vectorized elementwise math in
+    place of a batched 4x4 eigendecomposition. Reference equivalent:
     five-point.cpp triangulation inside recoverPose (:150-250) and
     triangPts3D (pose_estim.cpp:964).
 

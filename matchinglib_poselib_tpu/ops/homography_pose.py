@@ -1,6 +1,6 @@
 """Pose from multi-plane scenes via homography alignment (Halign).
 
-TPU-native equivalent of the reference's P9 layer (SURVEY.md):
+Batched equivalent of the reference's P9 layer (SURVEY.md):
 
 - estimatePoseHomographies (poselib/source/pose_homography.cpp:127) —
   pose for scenes dominated by one or more planes, where direct E
@@ -12,7 +12,7 @@ TPU-native equivalent of the reference's P9 layer (SURVEY.md):
   (HomographyAlignment.cpp) — decompose homographies into (R, t, n)
   and pick the physically consistent solution.
 
-TPU design (behavioral substitution, documented): the reference's joint
+Design (behavioral substitution, documented): the reference's joint
 iterative alignment (update_h0_rt, LM on homography entries) is replaced
 by *candidate scoring*: every extracted plane yields 4 analytic
 (R, t, n) candidates (Faugeras SVD decomposition); all candidates from

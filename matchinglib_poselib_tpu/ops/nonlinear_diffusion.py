@@ -1,12 +1,12 @@
 """KAZE/AKAZE: nonlinear-diffusion scale space, Hessian detection, and the
 M-SURF / MLDB descriptors.
 
-TPU-native re-implementation of the reference's KAZE/AKAZE detector and
+Batched re-implementation of the reference's KAZE/AKAZE detector and
 descriptor rows (SURVEY.md M2/M3; createDetector features.cpp:812-815
 'KAZE'/'AKAZE', createExtractor features.cpp:849-971). OpenCV's KAZE builds
 a nonlinear scale space with Fast Explicit Diffusion (FED); here each FED
 cycle is a fixed-count sequence of explicit Perona–Malik steps — pure
-5-point stencils, which XLA fuses into a handful of VPU passes. Everything
+5-point stencils, which XLA fuses into a handful of elementwise passes. Everything
 is fixed-shape and branch-free.
 
 Detector: scale-normalized determinant of Hessian computed on each
@@ -124,7 +124,7 @@ def kaze_keypoints(
         # what reduces a small blob's amplitude at coarse levels and makes
         # the sigma^4-normalized response peak at the blob's own scale.
         # Gaussian-blur-then-difference is the same operator in the
-        # continuous limit and cheaper on TPU.
+        # continuous limit and cheaper.
         G = S.gaussian_blur(L, sigma)
         s = lambda dy, dx: jnp.roll(G, (dy, dx), (0, 1))
         dxx = s(0, 1) + s(0, -1) - 2 * G

@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow + LK-guided matchers.
 
-TPU-native equivalent of the reference's M16 (SURVEY.md):
+Batched equivalent of the reference's M16 (SURVEY.md):
 
 - calc_opticalFlow (match_opticalflow.cpp:28-67): cv::calcOpticalFlowPyrLK
   with 3 pyramid levels, 21x21 window, 20 iterations, eps 0.013.

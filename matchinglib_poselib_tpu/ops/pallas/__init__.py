@@ -1,6 +1,1 @@
-"""Pallas TPU kernels for the framework's hot ops.
-
-Each kernel has an XLA reference implementation elsewhere in ops/; the
-dispatchers pick the Pallas path on TPU backends and fall back to XLA (or
-interpret mode in tests) otherwise.
-"""
+"""Hand-written Pallas kernels; each has a plain XLA path in ops/ beside it."""

@@ -1,34 +1,30 @@
-"""Fused tiled 2-NN descriptor search (Pallas TPU kernel).
+"""Fused tiled 2-NN descriptor search (Pallas kernel, Triton route).
 
-The matching engine's hot op. The XLA path (ops/matching.py) materializes
-the full (N1, N2) distance matrix in HBM before reducing it to the two
-nearest neighbors per row; at pool/database scale (30k+ descriptors,
-SURVEY.md §5.7) that matrix dominates HBM traffic. This kernel streams
-(TN, TM) distance tiles through VMEM — one MXU contraction per tile — and
-keeps only a running (best, second-best, indices) state per query row, so
-the full matrix never exists.
+The XLA path (ops/matching.py) writes the full (N1, N2) distance matrix to
+device memory and reads it back twice: once for the row top-2 and once
+for the column argmin of the cross-check. At database scale (30k x 30k)
+that matrix is 3.8 GB. This kernel keeps each (TN, TM) distance tile in
+registers: one block owns TN query rows, walks its share of the candidate
+columns in a ``fori_loop``, and carries only a running (best, second-best)
+state, so the matrix never exists.
+
+Blocks run in parallel and in no order, so nothing is carried between
+them. When there are too few row tiles to fill the card, the columns are
+split across blocks as well (``col_splits``) and the partial top-2 of the
+splits are merged by a small XLA sort after the kernel.
 
 Replaces the inner loops of every reference matcher backend (SURVEY.md
-M4-M6, M12-M15; matchers.cpp:115-736) on TPU. The optional fused radius
-gate reproduces GMbSOF guided matching (match_statOptFlow.cpp:4410):
-candidates outside the SOF-predicted radius get +BIG before the reduction,
-which removes the separate (N1, N2) penalty matrix of the XLA path.
+M4-M6, M12-M15; matchers.cpp:115-736). The optional fused radius gate
+reproduces GMbSOF guided matching (match_statOptFlow.cpp:4410):
+candidates outside the SOF-predicted radius get +BIG before the reduction.
 
 Distance formulations (see ops/matching.py for the identities):
-- binary: descriptors pre-mapped to ±1 bf16; ham = 0.5 * (bits - <s1, s2>)
-  (exact in bf16: products are ±1, the f32 accumulator is integral).
-- float: squared L2 = |a|^2 + |b|^2 - 2<a, b>, tile norms recomputed
-  per tile (cheap next to the contraction).
-
-Layout notes (TPU tiling, lane dim = 128):
-- query-side auxiliary data rides in a (N1, 128) page: lanes 0..2 =
-  predicted x, y, radius^2 — extracted as (TN, 1) slices, no transposes.
-- candidate-side auxiliary data rides in (8, N2) pages: row 0 = column
-  penalty (0 valid / BIG padded), rows 1..2 = keypoint x, y — extracted
-  as (1, TM) slices.
-- the running state lives in the output block itself ((TN, 128) f32,
-  lanes 0..3 = d1, d2, i1, i2), initialized at the first column tile and
-  revisited across the column sweep (grid iterates columns minor).
+- binary: descriptors pre-mapped to +-1 bf16; ham = 0.5 * (bits - <s1, s2>),
+  exact: products are +-1 and the f32 accumulator holds the integer sum.
+- float: squared L2 = |a|^2 + |b|^2 - 2<a, b>. The contraction runs in
+  IEEE fp32 (``Precision.HIGHEST``; Triton would otherwise use TF32), the
+  precision of the XLA path under the package's "highest" default, so the
+  two agree up to summation order.
 """
 
 from __future__ import annotations
@@ -38,169 +34,172 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 BIG = 1e9
-_LANE = 128
+BIGC = 2.0 ** 27  # invalid/gated sentinel of the packed kernel
+# Enough blocks to give every SM of an H100 (132) two blocks; fewer row
+# tiles than this split the columns across blocks.
+_MIN_BLOCKS = 264
+# Tiles and Triton settings, one set for the plain and the radius-gated
+# kernel. In a sweep on an H100 the gated kernel with 3 stages asked for
+# 237,568 B of shared memory, of 232,448 B available, so 2 stages; the
+# plain kernel alone read ~11% faster with 3, near the sweep's noise
+# (PERF.md).
+_BLOCK_ROWS, _BLOCK_COLS, _NUM_WARPS, _NUM_STAGES = 64, 128, 4, 2
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _knn2_kernel(binary: bool, bits: int, xy_mode: int):
-    """Build the kernel body.
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x - 1).bit_length(), 0)
 
-    Static: distance mode, bit count, radius gate. xy_mode: 0 = no gate,
-    1 = radius per query row (forward guided matching), 2 = radius per
-    candidate column (the mirrored gate of the cross-check direction).
+
+def _gate(dist, start, tm, big, xy_mode, row_aux, col_aux):
+    """Radius gate: +big on candidates outside the SOF search circle."""
+    if not xy_mode:
+        return dist
+    cols = pl.ds(start, tm)
+    qx, qy = row_aux[0][...], row_aux[1][...]
+    cx, cy = col_aux[1][cols], col_aux[2][cols]
+    dx = qx[:, None] - cx[None, :]
+    dy = qy[:, None] - cy[None, :]
+    if xy_mode == 1:
+        r2 = row_aux[2][...][:, None]
+    else:
+        r2 = col_aux[3][cols][None, :]
+    return jnp.where(dx * dx + dy * dy <= r2, dist, dist + big)
+
+
+def _kernel(packed: bool, binary: bool, bits: int, pack: float, xy_mode: int,
+            tm: int, tiles_per_split: int, n_row_aux: int, n_col_aux: int):
+    """Kernel body for one (row tile, column split) block.
+
+    Packed binary (``packed``): for +-1 signs, bits - <s1, s2> is an even
+    integer 2*hamming, so with pack = pack_cols / 2
+
+        combined = (bits - dot) * pack + col_id = hamming * pack_cols + col_id
+
+    is exact in f32 (the caller checks the 24-bit range; pack_cols is the
+    smallest power of two above every column id). One running min then
+    yields the best distance AND its index, lowest index on ties. The
+    per-column constant bits*pack + col_id (BIGC + bits*pack for invalid
+    columns, so combined >= BIGC even at dot = bits) comes precomputed, so
+    the epilogue is one multiply-add and two mins per distance.
+
+    General (float L2, or binary too wide to pack): distances and indices
+    are carried separately, lowest index on ties.
     """
 
-    def kernel(a_ref, bt_ref, caux_ref, qaux_ref, out_ref):
-        j = pl.program_id(1)
-        tn = a_ref.shape[0]
-        tm = bt_ref.shape[1]
+    def kernel(a_ref, b_ref, *refs):
+        row_aux = refs[:n_row_aux]
+        col_aux = refs[n_row_aux:n_row_aux + n_col_aux]
+        out_refs = refs[n_row_aux + n_col_aux:]
+        split = pl.program_id(1)
+        a = a_ref[...]
+        tn = a.shape[0]
+        if not binary:
+            a32 = a.astype(jnp.float32)
+            sq1 = jnp.sum(a32 * a32, axis=1)
 
-        a = a_ref[:]
-        bt = bt_ref[:]  # (D, TM): candidates pre-transposed for the MXU
-        # DEFAULT precision: bf16 operands feed the MXU natively with f32
-        # accumulation (exact for ±1 signs); "highest" (the package default)
-        # asks Mosaic for an fp32 contraction of bf16 vectors, which it
-        # rejects ("Bad lhs type").
-        dot = jnp.dot(
-            a, bt,
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT,
-        )
-        if binary:
-            dist = 0.5 * (jnp.float32(bits) - dot)
-        else:
-            sq1 = jnp.sum(a.astype(jnp.float32) ** 2, axis=1, keepdims=True)
-            sq2 = jnp.sum(bt.astype(jnp.float32) ** 2, axis=0, keepdims=True)
-            dist = jnp.maximum(sq1 + sq2 - 2.0 * dot, 0.0)
+        def tile(j):
+            start = pl.multiple_of((split * tiles_per_split + j) * tm, tm)
+            b = b_ref[pl.ds(start, tm), :]
+            dot = pl.dot(
+                a, b, trans_b=True,
+                precision=(
+                    jax.lax.Precision.DEFAULT if binary
+                    else jax.lax.Precision.HIGHEST
+                ),
+            )
+            return start, b, dot
 
-        dist = dist + caux_ref[0:1, :]  # column validity penalty
-        if xy_mode:
-            dx = qaux_ref[:, 0:1] - caux_ref[1:2, :]
-            dy = qaux_ref[:, 1:2] - caux_ref[2:3, :]
-            r2 = qaux_ref[:, 2:3] if xy_mode == 1 else caux_ref[3:4, :]
-            dist = jnp.where(dx * dx + dy * dy <= r2, dist, dist + BIG)
+        if packed:
+            def body(j, carry):
+                r1, r2 = carry
+                start, _, dot = tile(j)
+                comb = col_aux[0][pl.ds(start, tm)][None, :] - dot * pack
+                comb = _gate(comb, start, tm, BIGC, xy_mode, row_aux, col_aux)
+                t1 = jnp.min(comb, axis=1)
+                t2 = jnp.min(
+                    jnp.where(comb == t1[:, None], BIGC, comb), axis=1
+                )
+                return (
+                    jnp.minimum(r1, t1),
+                    jnp.minimum(jnp.maximum(r1, t1), jnp.minimum(r2, t2)),
+                )
 
-        col0 = (j * tm).astype(jnp.float32)
-        col_ids = col0 + jax.lax.broadcasted_iota(
-            jnp.int32, (tn, tm), dimension=1
-        ).astype(jnp.float32)
+            init = jnp.full((tn,), BIGC, jnp.float32)
+            m1, m2 = jax.lax.fori_loop(0, tiles_per_split, body, (init, init))
+            out_refs[0][...] = m1
+            out_refs[1][...] = m2
+            return
 
-        # tile-local top-2 (min + masked second min; ties -> lowest id)
-        t1 = jnp.min(dist, axis=1, keepdims=True)
-        i1t = jnp.min(
-            jnp.where(dist == t1, col_ids, BIG), axis=1, keepdims=True
-        )
-        dist2 = jnp.where(col_ids == i1t, BIG, dist)
-        t2 = jnp.min(dist2, axis=1, keepdims=True)
-        i2t = jnp.min(
-            jnp.where(dist2 == t2, col_ids, BIG), axis=1, keepdims=True
-        )
-
-        @pl.when(j == 0)
-        def _():
-            init = jnp.full((tn, _LANE), BIG, jnp.float32)
-            out_ref[:] = init
-
-        d1 = out_ref[:, 0:1]
-        d2 = out_ref[:, 1:2]
-        i1 = out_ref[:, 2:3]
-        i2 = out_ref[:, 3:4]
-
-        # merge two sorted pairs (d1<=d2, t1<=t2)
-        run_first = d1 <= t1
-        nd1 = jnp.minimum(d1, t1)
-        ni1 = jnp.where(run_first, i1, i1t)
-        nd2 = jnp.where(run_first, jnp.minimum(d2, t1), jnp.minimum(t2, d1))
-        ni2 = jnp.where(
-            run_first,
-            jnp.where(d2 <= t1, i2, i1t),
-            jnp.where(t2 <= d1, i2t, i1),
-        )
-        pad = jnp.zeros((tn, _LANE - 4), jnp.float32)
-        out_ref[:] = jnp.concatenate([nd1, nd2, ni1, ni2, pad], axis=1)
-
-    return kernel
-
-
-def _knn2_kernel_packed(pack: float, xy_mode: int):
-    """Packed binary kernel: one f32 carries (hamming, col_id).
-
-    For ±1 sign descriptors, bits - <s1, s2> = 2 * hamming is an even
-    integer in [0, 2*bits], so with pack = pack_cols / 2
-
-        combined = (bits - dot) * pack + col_id
-                 = hamming * pack_cols + col_id
-
-    is exactly representable in f32 whenever the maximum value
-    bits * pack_cols + (n2p - 1) stays within f32's 24-bit integer range
-    (checked by the caller; pack_cols is the smallest power of two
-    holding every column id, so the col field is untouched by the
-    hamming term). A single running min then yields both the best
-    distance AND its index with lowest-index tie-breaking for free. This
-    cuts the VPU work per distance from ~12 elementwise ops (separate
-    min/second-min/index selects of the general kernel below) to ~4,
-    which is the difference between 30% and ~2x that MXU utilization:
-    at D=256 the MXU contraction is only ~512 FLOPs per distance, so the
-    VPU post-processing, not the matmul, bounds the kernel.
-
-    The per-column constant bits*pack + col_id — or BIGC + bits*pack for
-    invalid columns, so combined >= BIGC even at the maximal positive
-    correlation dot = bits — is precomputed on row 4 of the caux page,
-    making the in-kernel combine a single fused multiply-add.
-    """
-
-    def kernel(a_ref, bt_ref, caux_ref, qaux_ref, out_ref):
-        j = pl.program_id(1)
-        tn = a_ref.shape[0]
-        tm = bt_ref.shape[1]
-
-        dot = jnp.dot(
-            a_ref[:], bt_ref[:],
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT,
-        )
-        # caux row 4 = bits*pack + global col id, or BIGC + bits*pack
-        # when invalid
-        combined = caux_ref[4:5, :] - dot * pack
-        if xy_mode:
-            dx = qaux_ref[:, 0:1] - caux_ref[1:2, :]
-            dy = qaux_ref[:, 1:2] - caux_ref[2:3, :]
-            r2 = qaux_ref[:, 2:3] if xy_mode == 1 else caux_ref[3:4, :]
-            combined = jnp.where(
-                dx * dx + dy * dy <= r2, combined, combined + BIGC
+        def body(j, carry):
+            d1, d2, i1, i2 = carry
+            start, b, dot = tile(j)
+            if binary:
+                dist = 0.5 * (jnp.float32(bits) - dot)
+            else:
+                b32 = b.astype(jnp.float32)
+                sq2 = jnp.sum(b32 * b32, axis=1)
+                dist = jnp.maximum(
+                    sq1[:, None] + sq2[None, :] - 2.0 * dot, 0.0
+                )
+            dist = dist + col_aux[0][pl.ds(start, tm)][None, :]
+            dist = _gate(dist, start, tm, BIG, xy_mode, row_aux, col_aux)
+            col = (start + jnp.arange(tm)).astype(jnp.float32)[None, :]
+            t1 = jnp.min(dist, axis=1)
+            j1 = jnp.min(jnp.where(dist == t1[:, None], col, BIG), axis=1)
+            dist2 = jnp.where(col == j1[:, None], BIG, dist)
+            t2 = jnp.min(dist2, axis=1)
+            j2 = jnp.min(jnp.where(dist2 == t2[:, None], col, BIG), axis=1)
+            # merge two sorted pairs (d1 <= d2, t1 <= t2); the running
+            # pair holds lower column ids, so it wins ties
+            run_first = d1 <= t1
+            nd2 = jnp.where(run_first, jnp.minimum(d2, t1),
+                            jnp.minimum(t2, d1))
+            ni2 = jnp.where(
+                run_first,
+                jnp.where(d2 <= t1, i2, j1),
+                jnp.where(t2 < d1, j2, i1),
+            )
+            return (
+                jnp.minimum(d1, t1), nd2,
+                jnp.where(run_first, i1, j1), ni2,
             )
 
-        m1 = jnp.min(combined, axis=1, keepdims=True)
-        m2 = jnp.min(
-            jnp.where(combined == m1, BIGC, combined), axis=1, keepdims=True
-        )
-
-        @pl.when(j == 0)
-        def _():
-            out_ref[:] = jnp.full((tn, _LANE), BIGC, jnp.float32)
-
-        r1 = out_ref[:, 0:1]
-        r2_ = out_ref[:, 1:2]
-        nm1 = jnp.minimum(r1, m1)
-        nm2 = jnp.minimum(jnp.maximum(r1, m1), jnp.minimum(r2_, m2))
-        pad = jnp.zeros((tn, _LANE - 2), jnp.float32)
-        out_ref[:] = jnp.concatenate([nm1, nm2, pad], axis=1)
+        big = jnp.full((tn,), BIG, jnp.float32)
+        res = jax.lax.fori_loop(0, tiles_per_split, body, (big,) * 4)
+        for ref, val in zip(out_refs, res):
+            ref[...] = val
 
     return kernel
 
 
-BIGC = 2.0 ** 27  # invalid/gated sentinel, past any packed value
+def plan(n1: int, n2: int, block_rows: int = _BLOCK_ROWS,
+         block_cols: int = _BLOCK_COLS) -> tuple[int, int, int, int]:
+    """Padded sizes and grid: (n1p, n2p, col_splits, tiles_per_split).
+
+    N1 pads to a multiple of ``block_rows``; N2 to a whole number of
+    ``block_cols`` tiles per split. The columns are split until there are
+    about ``_MIN_BLOCKS`` blocks (at most one split per tile).
+    """
+    n1p = _round_up(max(n1, 1), block_rows)
+    n_col_tiles = -(-max(n2, 1) // block_cols)
+    col_splits = -(-_MIN_BLOCKS // (n1p // block_rows))
+    col_splits = max(1, min(col_splits, n_col_tiles))
+    tiles_per_split = -(-n_col_tiles // col_splits)
+    col_splits = -(-n_col_tiles // tiles_per_split)  # least padding
+    n2p = tiles_per_split * col_splits * block_cols
+    return n1p, n2p, col_splits, tiles_per_split
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("binary", "bits", "xy_mode", "tn", "tm", "interpret"),
+    static_argnames=("binary", "bits", "xy_mode", "interpret"),
 )
 def knn2(
     desc1: jax.Array,
@@ -213,131 +212,115 @@ def knn2(
     binary: bool,
     bits: int = 0,
     xy_mode: int = 0,
-    tn: int = 512,
-    tm: int = 1024,
     interpret: bool = False,
 ):
     """Two nearest neighbors of every desc1 row among valid desc2 rows.
 
-    desc1: (N1, D) — ±1 signs (binary=True) or float values.
+    desc1: (N1, D) +-1 signs (binary=True, ``bits`` = D) or float values.
     desc2: (N2, D); valid2: (N2,) bool.
     pred/rad2/pts2 (xy_mode != 0): positions (N1, 2)/(N2, 2) and squared
     search radius; candidates outside the circle are gated out (guided
     matching). xy_mode=1: rad2 is (N1,) per query; xy_mode=2: rad2 is
     (N2,) per candidate (mirrored gate for the cross-check direction).
 
+    ``interpret`` runs the kernel in the Pallas interpreter (tests without
+    a GPU).
+
     Returns (d_best, d_second, idx) each (N1,); idx int32 (-1 when no valid
-    candidate was inside the gate — d_best >= BIG/2 then).
+    candidate was inside the gate; d_best >= BIG/2 then).
     """
     n1, d = desc1.shape
     n2 = desc2.shape[0]
-    n1p = _round_up(max(n1, tn), tn)
-    n2p = _round_up(max(n2, tm), tm)
-    dp = _round_up(d, _LANE)
+    tn, tm = _BLOCK_ROWS, _BLOCK_COLS
+    n1p, n2p, splits, tiles_per_split = plan(n1, n2)
+    dp = _next_pow2(max(d, 16))
 
     cdtype = desc1.dtype
     a = jnp.zeros((n1p, dp), cdtype).at[:n1, :d].set(desc1)
-    bt = jnp.zeros((dp, n2p), cdtype).at[:d, :n2].set(desc2.T)
+    b = jnp.zeros((n2p, dp), cdtype).at[:n2, :d].set(desc2.astype(cdtype))
+    valid = jnp.zeros((n2p,), bool).at[:n2].set(valid2.astype(bool))
 
-    # packed fast path: binary descriptors whose (hamming, col) pair fits
-    # one exact f32 (see _knn2_kernel_packed). pack_cols = smallest power
-    # of two holding every column id; every packed integer up to
-    # bits*pack_cols + n2p - 1 must be <= 2^24 (f32 exact-integer range).
+    # packed fast path (see _kernel): every packed integer up to
+    # bits*pack_cols + n2p - 1 must be <= 2^24 (f32 exact-integer range)
     pack_cols = 1 << max(int(n2p - 1).bit_length(), 10)
     packed = binary and bits * pack_cols + n2p - 1 <= 2 ** 24
     pack = pack_cols / 2.0
 
-    # candidate-side page: row 0 penalty, rows 1..2 keypoint x, y,
-    # row 4 packed per-column constant bits*pack + col (packed path)
-    caux = jnp.full((8, n2p), BIG, jnp.float32)
-    caux = caux.at[0, :n2].set(jnp.where(valid2.astype(bool), 0.0, BIG))
     if packed:
+        # invalid sentinel BIGC + bits*pack: an invalid column with maximal
+        # positive correlation (dot = bits) lands exactly on BIGC and is
+        # rejected by the strict < BIGC decode
         cols = jnp.arange(n2p, dtype=jnp.float32)
-        # invalid sentinel BIGC + bits*pack: an invalid ±1 descriptor
-        # column with maximal positive correlation (dot = bits) still
-        # lands exactly on BIGC and is rejected by the strict < BIGC
-        # decode; padded zero columns (dot = 0) land above BIGC
-        c4 = jnp.full((n2p,), BIGC + bits * pack, jnp.float32)
-        c4 = c4.at[:n2].set(
-            jnp.where(
-                valid2.astype(bool),
-                jnp.float32(bits) * pack + cols[:n2],
-                BIGC + bits * pack,
-            )
-        )
-        caux = caux.at[4, :].set(c4)
+        c0 = jnp.where(valid, jnp.float32(bits) * pack + cols,
+                       BIGC + bits * pack)
+    else:
+        c0 = jnp.where(valid, 0.0, BIG).astype(jnp.float32)
+    col_aux = [c0]
+    row_aux = []
     if xy_mode:
-        caux = caux.at[1, :n2].set(pts2[:, 0].astype(jnp.float32))
-        caux = caux.at[2, :n2].set(pts2[:, 1].astype(jnp.float32))
-        if xy_mode == 2:
-            caux = caux.at[3, :].set(-1.0)  # padded cols: empty gate
-            caux = caux.at[3, :n2].set(rad2.astype(jnp.float32))
+        def pad_c(v, fill=0.0):
+            return jnp.full((n2p,), fill, jnp.float32).at[:n2].set(
+                v.astype(jnp.float32))
 
-    # query-side page: lanes 0..2 = pred x, pred y, radius^2
-    qaux = jnp.zeros((n1p, _LANE), jnp.float32)
-    if xy_mode:
-        qaux = qaux.at[:n1, 0].set(pred[:, 0].astype(jnp.float32))
-        qaux = qaux.at[:n1, 1].set(pred[:, 1].astype(jnp.float32))
+        def pad_r(v):
+            return jnp.zeros((n1p,), jnp.float32).at[:n1].set(
+                v.astype(jnp.float32))
+
+        col_aux += [pad_c(pts2[:, 0]), pad_c(pts2[:, 1])]
+        row_aux = [pad_r(pred[:, 0]), pad_r(pred[:, 1])]
         if xy_mode == 1:
-            qaux = qaux.at[:n1, 2].set(rad2.astype(jnp.float32))
+            row_aux.append(pad_r(rad2))
+        else:
+            col_aux.append(pad_c(rad2, fill=-1.0))  # padded cols: empty gate
 
-    grid = (n1p // tn, n2p // tm)
+    n_out = 2 if packed else 4
     out = pl.pallas_call(
-        _knn2_kernel_packed(pack, xy_mode)
-        if packed
-        else _knn2_kernel(binary, bits if binary else 0, xy_mode),
-        out_shape=jax.ShapeDtypeStruct((n1p, _LANE), jnp.float32),
-        grid_spec=pl.GridSpec(
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec(
-                    (tn, dp), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-                ),
-                pl.BlockSpec(
-                    (dp, tm), lambda i, j: (0, j), memory_space=pltpu.VMEM
-                ),
-                pl.BlockSpec(
-                    (8, tm), lambda i, j: (0, j), memory_space=pltpu.VMEM
-                ),
-                pl.BlockSpec(
-                    (tn, _LANE), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-                ),
-            ],
-            out_specs=pl.BlockSpec(
-                (tn, _LANE), lambda i, j: (i, 0), memory_space=pltpu.VMEM
-            ),
+        _kernel(packed, binary, bits if binary else 0, pack, xy_mode, tm,
+                tiles_per_split, len(row_aux), len(col_aux)),
+        out_shape=[jax.ShapeDtypeStruct((splits, n1p), jnp.float32)] * n_out,
+        grid=(n1p // tn, splits),
+        in_specs=[
+            pl.BlockSpec((tn, dp), lambda i, s: (i, 0)),
+            pl.BlockSpec((n2p, dp), lambda i, s: (0, 0)),
+            *[pl.BlockSpec((tn,), lambda i, s: (i,)) for _ in row_aux],
+            *[pl.BlockSpec((n2p,), lambda i, s: (0,)) for _ in col_aux],
+        ],
+        out_specs=[pl.BlockSpec((None, tn), lambda i, s: (s, i))] * n_out,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
         cost_estimate=pl.CostEstimate(
             flops=2 * n1p * n2p * dp,
-            bytes_accessed=(n1p * dp + n2p * dp) * a.dtype.itemsize
-            + n1p * _LANE * 4,
+            bytes_accessed=(n1p + n2p * (n1p // tn)) * dp * a.dtype.itemsize,
             transcendentals=0,
         ),
         interpret=interpret,
-    )(a, bt, caux, qaux)
+        name="knn2",
+    )(a, b, *row_aux, *col_aux)
 
     if packed:
-        m1 = out[:n1, 0]
-        m2 = out[:n1, 1]
+        if splits == 1:
+            m1, m2 = out[0][0, :n1], out[1][0, :n1]
+        else:
+            m = jnp.sort(jnp.concatenate(out, axis=0)[:, :n1], axis=0)
+            m1, m2 = m[0], m[1]
         ham1 = jnp.floor(m1 / pack_cols)
         col1 = m1 - ham1 * pack_cols
-        # col1 < n2 always holds when m1 < BIGC (invalid/padded columns
-        # carry the >= BIGC sentinel); keep the guard as defense against
-        # out-of-range gathers downstream
         ok1 = (m1 < BIGC) & (col1 < n2)
         d_best = jnp.where(ok1, ham1, BIG)
-        d_second = jnp.where(
-            m2 < BIGC, jnp.floor(m2 / pack_cols), BIG
-        )
+        d_second = jnp.where(m2 < BIGC, jnp.floor(m2 / pack_cols), BIG)
         idx = jnp.where(ok1, col1.astype(jnp.int32), -1)
         return d_best, d_second, idx
-    d_best = out[:n1, 0]
-    d_second = out[:n1, 1]
-    idx_f = out[:n1, 2]
+
+    d1, d2, i1, i2 = (o[:, :n1] for o in out)
+    if splits == 1:
+        d_best, d_second, idx_f = d1[0], d2[0], i1[0]
+    else:
+        ds, is_ = jax.lax.sort(
+            (jnp.concatenate([d1, d2]), jnp.concatenate([i1, i2])),
+            dimension=0, num_keys=2,
+        )
+        d_best, d_second, idx_f = ds[0], ds[1], is_[0]
     idx = jnp.where(idx_f >= BIG * 0.5, -1, idx_f).astype(jnp.int32)
     return d_best, d_second, idx
-
-
-def use_pallas_default() -> bool:
-    """Pallas path auto-selection: compiled on TPU backends only."""
-    return jax.default_backend() == "tpu"

@@ -1,13 +1,13 @@
 """Correspondence pool: fixed-capacity SoA arrays with masked device ops.
 
-TPU-native replacement for the reference's streaming pool machinery
+Batched replacement for the reference's streaming pool machinery
 (SURVEY.md P14/P15):
 
 - `std::list<CoordinateProps>` + index map + nanoflann KD-tree
   (stereo_pose_refinement.h:214-217, nanoflannInterface.cpp) becomes one
   fixed-capacity structure-of-arrays with a validity mask. There is no
   index structure at all: spatial queries are masked distance matrices
-  (one MXU/VPU pass over the whole pool beats tree traversal on TPU).
+  (one dense pass over the whole pool in place of tree traversal).
 - the full CoordinateProps record (stereo_pose_types.h:34-62) is carried:
   pixel + camera coordinates, triangulated 3D point ``Q`` with the
   ``Q_tooFar`` far-point flag, ``nrFound`` re-detection counter, age in
@@ -21,7 +21,7 @@ TPU-native replacement for the reference's streaming pool machinery
   nearest-pool-point radius check with the reference's decision rule
   (coincident-point nrFound bump, 5%/20% relative weight bands, age>15
   and increasing-error preferences). The reference compares against every
-  pool point in the radius; the TPU version compares against the nearest
+  pool point in the radius; this version compares against the nearest
   valid one — the dominant term of the same rule, evaluated densely.
 - quality weights (computeCorrespondenceWeight :2514): 0.3/0.5/0.2 blend
   of inverse Sampson error, inverse descriptor distance and keypoint
@@ -192,9 +192,13 @@ def filter_new_vs_pool(
     kill_old = kill_old | (within & ~same_point & decisive_new)
 
     new_valid_out = new_valid.astype(bool) & jnp.logical_not(drop_new)
-    pool_valid_out = pool.valid.at[near].set(
-        jnp.where(kill_old, False, pool.valid[near])
+    # several new points can share one nearest pool entry: it is evicted
+    # when any of them kills it (a scatter-set of the per-point verdicts
+    # would keep whichever write lands last, which on a GPU varies)
+    killed = jnp.zeros(pool.valid.shape, jnp.int32).at[near].max(
+        kill_old.astype(jnp.int32)
     )
+    pool_valid_out = pool.valid & (killed == 0)
     n_found_out = pool.n_found.at[near].add(
         jnp.where(coincident, 1, 0)
     )
@@ -210,7 +214,7 @@ def insert_and_evict(
 ) -> Pool:
     """Insert K new correspondences, evicting the lowest-weight entries.
 
-    TPU-native fusion of addCorrespondencesToPool (:1150-1220) +
+    Batched fusion of addCorrespondencesToPool (:1150-1220) +
     checkPoolSize eviction (:2550): concatenate pool and new rows, keep the
     capacity-P best by (valid, weight) via one top_k. Invalid rows sort
     last, so free slots are always consumed before any eviction happens.

@@ -1,6 +1,6 @@
 """Stereo rectification and rectified-image generation.
 
-TPU-native equivalent of the reference's rectification layer (SURVEY.md P13,
+Batched equivalent of the reference's rectification layer (SURVEY.md P13,
 all in poselib/source/pose_helper.cpp):
 
 - getRectificationParameters (:1366) — dispatch + validation
@@ -15,7 +15,7 @@ all in poselib/source/pose_helper.cpp):
 Both classic algorithms reduce to the same construction here: a common
 rotation whose x-axis is the baseline, new shared intrinsics, per-camera
 rectifying rotations R1 = Rn and R2 = Rn R^T (world = camera-1 frame,
-x2 = R x1 + t). The remap is a dense gather — pure VPU work, batched over
+x2 = R x1 + t). The remap is a dense gather — pure elementwise work, batched over
 all output pixels at once.
 """
 

@@ -1,6 +1,6 @@
 """Iterative reweighted linear refinement of essential matrices.
 
-TPU-native equivalent of the reference's linear refinement layer:
+Batched equivalent of the reference's linear refinement layer:
 - refineEssentialLinear (pose_linear_refinement.cpp:85-640): IRLS on all
   inliers with Torr / pseudo-Huber weights, a shrinking threshold schedule
   th_use = m*th - (i+1)*th_step, and an inlier-loss guard that restores the

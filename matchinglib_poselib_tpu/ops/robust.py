@@ -1,6 +1,6 @@
 """Batched robust model estimation (RANSAC / PROSAC / LMEDS / USAC / ARRSAC).
 
-One TPU-native engine replaces the reference's four sequential robust loops
+One batched engine replaces the reference's four sequential robust loops
 (SURVEY.md §7 stage 3):
 
 - USAC<EssentialMatEstimator>::solve hypothesize-and-verify loop
@@ -9,7 +9,7 @@ One TPU-native engine replaces the reference's four sequential robust loops
   (five-point-nister/modelest.cpp:197,343,483)
 - theia::Arrsac::Compute (arrsac/arrsac.h:88-117)
 
-Design mapping (sequential CPU -> batched TPU):
+Design mapping (sequential CPU -> batched device):
 
 - hypothesis loop            -> hypothesis *batches*: B minimal samples are
                                 solved and densely scored per device step;
@@ -17,8 +17,8 @@ Design mapping (sequential CPU -> batched TPU):
                                 on the standard RANSAC confidence criterion
                                 (the batch-granular analogue of USAC's
                                 adaptive stopping, USAC.h update_stopping)
-- SPRT per-point early exit  -> dense scoring of all N points on the VPU/MXU
-                                (cheaper than branching on TPU; SPRT's
+- SPRT per-point early exit  -> dense scoring of all N points on the elementwise/matmul
+                                (cheaper than branching on the device; SPRT's
                                 purpose — skipping bad models early — is
                                 subsumed by scoring everything at once)
 - PROSAC progressive pool    -> per-batch sampling-pool size n_k growing on
@@ -76,7 +76,7 @@ def essential_family(
     """5pt essential family. Both reference minimal solvers are available
     (EssentialMatEstimator.h:395,463 fivept_nister / fivept_stewenius);
     the Nister closed form is the default — it is the cheaper hypothesis
-    generator on TPU (polynomial convolutions vs 10x10 eigen-machinery)."""
+    generator on the device (polynomial convolutions vs 10x10 eigen-machinery)."""
 
     def err(E, x1, x2):
         # E: (M, 3, 3); points broadcast over M
@@ -541,7 +541,7 @@ def rotation_only_model(x1, x2, weights):
     Reference: RotationMatEstimator.h rotationOnly (opengv two-point
     rotation). Bearing vectors b = normalize([x, y, 1]); maximize
     sum w_i <b2_i, R b1_i> -> largest eigenvector of the 4x4 Davenport
-    K-matrix (symmetric eigensolve, TPU-native).
+    K-matrix (symmetric eigensolve).
     """
     b1 = geo.normalize_vec(geo.to_homogeneous(x1))
     b2 = geo.normalize_vec(geo.to_homogeneous(x2))
@@ -747,7 +747,7 @@ def estimate_nomotion_robust(
     identity motion (R = I, t = 0) — whose support is every
     correspondence with (normalized) displacement under the threshold.
     The reference still spins its USAC loop to verify that one model; on
-    TPU the search collapses to a single dense scoring pass over all
+    here the search collapses to a single dense scoring pass over all
     points, which is both exact and the fastest possible formulation.
     The returned model slot carries the identity rotation; ``quality``
     and ``key`` are accepted for menu-signature parity and unused.

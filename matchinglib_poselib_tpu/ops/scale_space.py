@@ -1,19 +1,19 @@
 """Scale-space keypoint detectors: DoG (SIFT), fast-Hessian (SURF),
 CenSurE (STAR), MSD, and pyramid FAST (ORB/BRISK).
 
-TPU-native re-implementations of the reference's OpenCV-backed detector
+Batched re-implementations of the reference's OpenCV-backed detector
 factory rows (SURVEY.md M2; createDetector features.cpp:792-847). Each
 detector is a fixed-shape, branch-free score/extrema computation:
 
 - Gaussian pyramids via separable convolutions (static kernel taps, XLA
-  fuses them onto the VPU/MXU).
+  fuses them onto the elementwise/matmul).
 - Scale-space extrema via ``reduce_window`` max/min comparisons — no
   pointer-chasing NMS.
 - Per-octave keypoints are selected with the same grid-capped top-k used at
   the base scale, then merged with a global top-k (the analogue of the
   reference's responseFilterGridBased, features.cpp:506).
 
-MSER has no TPU-shaped equivalent (union-find over threshold sweeps); its
+MSER has no fixed-shape equivalent (union-find over threshold sweeps); its
 registry row maps to polarity-aware scale-normalized DoG blob detection with
 a cross-level stability requirement — the classical LoG-blob approximation
 of MSER (documented behavioral substitution, same role: blob/region
@@ -279,7 +279,7 @@ def surf_hessian_keypoints(
     Parity target: OpenCV SURF detection as dispatched by the reference
     (features.cpp:820-823 'SURF' row). The box-filter approximation of the
     original is replaced by true Gaussian derivatives (better, and cheap on
-    TPU — the 0.81 dxy weight matches SURF's approximation constant).
+    device — the 0.81 dxy weight matches SURF's approximation constant).
     """
     maps = jnp.stack([_hessian_det(img, s) for s in _SURF_SIGMAS])
     mx = jax.vmap(
@@ -386,7 +386,7 @@ def msd_keypoints(
 
     Parity target: xfeatures2d::MSDDetector (features.cpp:828-831 'MSD').
     Saliency(p) = min over ring offsets o of SSD(patch(p), patch(p+o));
-    each SSD map is a box filter of a squared shifted difference — pure VPU
+    each SSD map is a box filter of a squared shifted difference — pure elementwise
     stencil work, no per-pixel loops.
     """
     offs = _msd_offsets()
@@ -426,7 +426,7 @@ def pyramid_fast_keypoints(
     Parity target: OpenCV ORB's pyramid detection with Harris re-ranking
     (features.cpp:804-807 'ORB') and BRISK's AGAST-over-octaves
     (features.cpp:808-811 'BRISK'); AGAST's accelerated decision tree is an
-    implementation detail of CPU FAST — on TPU the full segment test is one
+    implementation detail of CPU FAST — here the full segment test is one
     vectorized pass, so both rows share it.
     """
     H, W = img.shape

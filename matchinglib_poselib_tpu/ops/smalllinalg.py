@@ -1,11 +1,10 @@
-"""Closed-form tiny linear algebra for TPU latency chains.
+"""Closed-form tiny linear algebra for sequential latency chains.
 
-XLA lowers ``jnp.linalg.{svd,eigh,solve}`` on TPU to iterative
-Jacobi/LU routines built from while_loops — correct, but each call costs
-dispatch + loop latency that dominates when it sits on a *sequential*
-chain (the IRLS/LM refinement loops run ~30 dependent iterations, each
-with a 3x3 SVD projection and a 9x9 smallest-eigenvector solve; see
-SCALING.md round-3 profile: ~1.3 ms of dependent small-solve latency).
+``jnp.linalg.{svd,eigh,solve}`` on tiny batched matrices run iterative
+Jacobi/LU routines — correct, but each call adds loop latency on a
+*sequential* chain (the IRLS/LM refinement loops run ~30 dependent
+iterations, each with a 3x3 SVD projection and a 9x9 smallest-eigenvector
+solve).
 
 This module replaces those inner-loop calls with branch-free closed
 forms — pure fused arithmetic XLA folds into the surrounding step:

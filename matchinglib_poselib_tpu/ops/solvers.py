@@ -1,6 +1,6 @@
 """Batched minimal solvers: 5pt essential, 8pt, homography DLT.
 
-TPU-native replacements for the reference's solver kernels (SURVEY.md P3/P6):
+Batched replacements for the reference's solver kernels (SURVEY.md P3/P6):
 - 5pt Nister/Stewenius (reference: five-point-nister/five-point.cpp:260-455
   and opengv fivept_{nister,stewenius}) -> one batched polynomial solver
 - 8pt (opengv eightpt; also the nonminimal weighted solver used by
@@ -8,26 +8,26 @@ TPU-native replacements for the reference's solver kernels (SURVEY.md P3/P6):
 - 4pt homography DLT (usac HomogEstimator; pose_homography.cpp:674
   runHomogrophyKernel)
 
-TPU design notes
-----------------
+Design notes
+------------
 Nonsymmetric eigendecompositions (the classic route to the 5pt solver's ten
-roots) are not available on TPU. We therefore:
+roots) do not lower on every JAX backend. We therefore:
 
 1. build the 4-dim nullspace of the 5x9 epipolar constraint via a *symmetric*
-   9x9 eigendecomposition (A^T A — `jnp.linalg.eigh`, TPU-supported),
+   9x9 eigendecomposition (A^T A — `jnp.linalg.eigh`),
 2. recover the ten cubic constraint polynomials **by interpolation**: the
    constraints det(E)=0 and 2 E E^T E - tr(E E^T) E = 0 are exact cubics in
    the nullspace coordinates (x, y, z), so evaluating them at 20 fixed
    generic points and applying a precomputed 20x20 inverse Vandermonde
-   recovers all coefficients with two batched matmuls (MXU work, no symbolic
+   recovers all coefficients with two batched matmuls (matmul work, no symbolic
    expansion),
 3. Gauss-Jordan-eliminate the 10 degree-3 monomials (one batched 10x10
    `solve`) giving the Stewenius action matrix M_z for multiplication by z
    on the quotient-ring basis [x^2, xy, y^2, xz, yz, z^2, x, y, z, 1],
 4. find the *real* eigenvalues of M_z as sign changes of
    g(lam) = det((M_z - lam I)/sqrt(1+lam^2)) on a tan-parametrized grid,
-   refined by fixed-count bisection (batched 10x10 determinants — LU is
-   TPU-supported; the 1/sqrt(1+lam^2) scaling keeps g finite for |lam|→inf),
+   refined by fixed-count bisection (batched 10x10 determinants — no LU
+   needed; the 1/sqrt(1+lam^2) scaling keeps g finite for |lam|→inf),
 5. extract each eigenvector by regularized inverse iteration (batched 10x10
    solves) and read off x = v[6]/v[9], y = v[7]/v[9].
 
@@ -98,7 +98,7 @@ _VINV_T = jnp.asarray(_VINV64.T, jnp.float32)  # (20, 20): C = F @ VINV^T
 
 
 # ---------------------------------------------------------------------------
-# nullspace helpers (symmetric eigensolves — TPU-native)
+# nullspace helpers (symmetric eigensolves)
 # ---------------------------------------------------------------------------
 
 
@@ -106,9 +106,7 @@ def solve_small(A: jax.Array, B: jax.Array) -> jax.Array:
     """Batched dense solve for tiny systems, unrolled Gaussian elimination.
 
     A: (..., n, n), B: (..., n, m) with small static n (<= ~20).
-    XLA's LU (jnp.linalg.solve) serializes catastrophically on TPU for tiny
-    batched matrices (~100x slower than this); here every elimination step
-    is a fully vectorized rank-1 update with partial pivoting via argmax +
+    Every elimination step is a fully vectorized rank-1 update with partial pivoting via argmax +
     gather. Singular systems produce inf/nan (callers mask on isfinite).
     """
     n = A.shape[-1]
@@ -183,8 +181,7 @@ def solve_small_lanes(A: jax.Array, B: jax.Array):
 def det_small(A: jax.Array) -> jax.Array:
     """Batched determinant of tiny (n, n) matrices via unrolled elimination.
 
-    Same motivation as solve_small: jnp.linalg.det's LU serializes on TPU.
-    Partial pivoting with sign tracking; fully vectorized over the batch.
+    Same form as solve_small: partial pivoting with sign tracking; fully vectorized over the batch.
     """
     n = A.shape[-1]
     M = A
@@ -235,9 +232,8 @@ def nullspace_qr(A: jax.Array) -> jax.Array:
     exactly that complement. Returns (..., N, N-M).
 
     This replaces `jnp.linalg.svd(A, full_matrices=True)` for nullspace
-    extraction: batched SVD of tiny matrices lowers to a slow iterative
-    LAPACK-style loop on TPU (~3 ms for 256x(5x9)), while M Householder
-    reflections are M fused einsum steps (~0.1 ms). For an exact-rank-M
+    extraction: M Householder reflections are M fused einsum steps, where
+    a batched SVD of tiny matrices is an iterative solver loop. For an exact-rank-M
     minimal system every nullspace basis is exactly null, so the SVD's
     singular-value ordering carries no information.
     """
@@ -294,10 +290,9 @@ def _constraint_values(Ebasis: jax.Array) -> jax.Array:
     Returns (..., 10, 20).
 
     Structure-of-arrays form: every intermediate is a (..., 20) array of
-    one scalar component. TPU tiles pad the two minor dims to (8, 128), so
-    the obvious (..., 20, 3, 3)-einsum formulation runs at ~2% lane
-    utilization (and jnp.linalg.det lowers to batched LU); this form keeps
-    the 20-point axis minor and uses the closed-form 3x3 determinant.
+    one scalar component: the 20-point axis stays minor and the 3x3
+    determinant is closed-form, where an (..., 20, 3, 3) einsum would put
+    tiny axes minor and jnp.linalg.det would run a batched LU.
     """
     pts = _INTERP_PTS  # (20, 3)
     wx, wy, wz = pts[:, 0], pts[:, 1], pts[:, 2]  # (20,) constants
@@ -413,8 +408,7 @@ def _hyman(H: jax.Array, lam: jax.Array):
     a converged eigenvalue it IS the eigenvector (in Hessenberg basis).
     Per-step positive renormalization prevents overflow without affecting
     sign-change detection. No pivoting, no gathers: n-1 unrolled
-    O(n)-vector steps (this is why it replaces LU determinant scans, which
-    are ~50x slower on TPU).
+    O(n)-vector steps in place of LU determinant scans.
     """
     n = H.shape[-1]
     xs = [None] * n
@@ -536,10 +530,8 @@ def _polish_xyz(Ebasis: jax.Array, xyz: jax.Array, iters: int = 3) -> jax.Array:
 
     Structure-of-arrays form: every intermediate is one (..., R) array per
     scalar component, Python-unrolled over the 3x3/constraint indices at
-    trace time. The previous einsum formulation carried (..., R, 3, 3, 3)
-    tensors whose minor dims pad to TPU's (8, 128) tile — ~2% utilization
-    and 9.2 ms at B=1024x10; this form is elementwise over the flat
-    hypothesis axis. Jacobians stay ANALYTIC (dE/dp_k = Ebasis_k constant):
+    trace time, so the work is elementwise over the flat hypothesis axis
+    instead of (..., R, 3, 3, 3) tensors with tiny minor axes. Jacobians stay ANALYTIC (dE/dp_k = Ebasis_k constant):
     a jacfwd/vmap formulation compiles to thousands of tiny unfused HLO ops.
     """
     # basis components broadcast against the R axis: (..., 1) each
@@ -690,7 +682,7 @@ def solve_5pt(x1: jax.Array, x2: jax.Array):
     valid (..., 10) boolean mask of real solutions.
 
     Reference behavior: five-point.cpp run5Point / opengv fivept_stewenius;
-    see module docstring for the TPU-native derivation.
+    see module docstring for the derivation.
     """
     A = epipolar_rows(x1, x2)  # (..., 5, 9)
     ns = nullspace_qr(A)  # (..., 9, 4) exact nullspace of the rank-5 system
@@ -872,7 +864,7 @@ def _real_roots_poly10(a: jax.Array):
         return r
 
     # dense scan as ONE matmul against a trace-time-constant (11, S)
-    # monomial table — MXU work instead of per-batch transcendentals
+    # monomial table — matmul work instead of per-batch transcendentals
     th_np = np.linspace(-np.pi / 2, np.pi / 2, _N_THETA_N)
     tbl = np.stack(
         [np.sin(th_np) ** k * np.cos(th_np) ** (10 - k) for k in range(11)]
@@ -908,7 +900,7 @@ def _real_roots_poly10(a: jax.Array):
 
     # 14 halvings of the pi/256 scan interval reach ~7e-7 in theta; the
     # 3D Gauss-Newton polish downstream converges well inside that radius,
-    # and each halving is a serial ~40us step on TPU (latency-bound).
+    # and each halving is a serial step.
     lo, hi, _ = jax.lax.fori_loop(0, 14, body, (lo, hi, g_lo))
     mid = 0.5 * (lo + hi)
     roots = jnp.tan(mid)
@@ -924,7 +916,7 @@ def solve_5pt_nister(x1: jax.Array, x2: jax.Array):
     valid (..., 10)). Reference: five-point-nister/five-point.cpp:260-455
     run5Point (the B(z)-determinant reduction to a degree-10 polynomial).
 
-    ~2-3x faster than the Stewenius action-matrix path on TPU: the
+    Fewer operations than the Stewenius action-matrix path: the
     10x10 Hessenberg eigen-machinery is replaced by polynomial
     convolutions + a fused scan/bisect, and x, y come from a closed-form
     2x2 least squares instead of eigenvector extraction.

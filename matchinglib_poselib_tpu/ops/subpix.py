@@ -1,6 +1,6 @@
 """Sub-pixel refinement of matched keypoint positions.
 
-TPU-native equivalent of the reference's M9 (SURVEY.md):
+Batched equivalent of the reference's M9 (SURVEY.md):
 
 - getSubPixMatches (matchinglib/source/matchers.cpp:1085-1317): template
   matching of a patch around the left keypoint inside a 2x-upsampled
@@ -11,10 +11,10 @@ TPU-native equivalent of the reference's M9 (SURVEY.md):
   cv::cornerSubPix on each image independently — covered here by the
   detector's quadratic response-map refinement (features.refine_subpixel).
 
-TPU design: all matches refine simultaneously. Per match, a TxT template
+Design: all matches refine simultaneously. Per match, a TxT template
 (bilinear-sampled at half-pixel pitch around the left point, which IS the
 reference's 2x upscaling) slides over an SxS search window; the full SSD
-surface over all (S-T+1)^2 shifts is computed as three MXU/VPU terms
+surface over all (S-T+1)^2 shifts is computed as three matmul/elementwise terms
 (sum T^2 + local sum S^2 - 2 corr(S, T)) with the cross-correlation as a
 depthwise convolution batched over matches. A final 1D parabola fit on
 the SSD surface gives sub-half-pixel precision.

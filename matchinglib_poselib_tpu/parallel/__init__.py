@@ -1,1 +1,1 @@
-"""Scale-out: device meshes, sharded pair batching, pod-wide kNN, collectives."""
+"""Scale-out: device meshes, sharded pair batching, db-sharded kNN, collectives."""

@@ -1,11 +1,11 @@
 """Distributed windowed bundle adjustment over point shards.
 
 The reference runs SBA single-threaded on one host (BA_driver.cpp:2245
-sba_motstr_levmar). The TPU scale-out design (SURVEY.md §2.4/§5.7) shards
+sba_motstr_levmar). The scale-out design (SURVEY.md §2.4/§5.7) shards
 the structure: each device owns a contiguous block of 3D points and their
 observations, computes its partial camera-Hessian / Schur / gradient
 contributions, and the reduced camera system is `psum`-completed over the
-mesh axis (ICI within a slice, DCN across hosts). The camera update is
+mesh axis (NVLink within a host, the network across hosts). The camera update is
 replicated; point updates stay local to the owning shard. Communication per
 LM iteration is O((C*D)^2) scalars — independent of the number of points.
 """

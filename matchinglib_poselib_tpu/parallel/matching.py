@@ -1,8 +1,8 @@
 """Pod-wide kNN: descriptor matching against a db sharded over devices.
 
 Replaces the reference's threaded ANN queries (NMSLIB 8-thread pool,
-nmslib_matchers.h:330-345) with the pod-scale design of SURVEY.md §5.7:
-each device scores the queries against its database shard on the MXU, then
+nmslib_matchers.h:330-345) with the device-sharded design of SURVEY.md §5.7:
+each device scores the queries against its database shard as matmuls, then
 the per-shard top-2 candidates are merged with one `all_gather` over the
 ``db`` mesh axis. Exact 2-NN over the full database, communication is
 O(S * N1) scalars (candidates only), never the distance matrix.
@@ -46,23 +46,19 @@ def sharded_match(
     shard_rows = N2 // n_shards
 
     def local_fn(q, dbs, vq, vdb):
-        # q: (N1, W) replicated; dbs: (shard_rows, W) this shard's rows
-        if binary:
-            dist = matching.hamming_distance_matrix(q, dbs)
-        else:
-            dist = matching.l2_distance_matrix(q, dbs)
-        dist = jnp.where(vdb.astype(bool)[None, :], dist, _BIG)
-        dist = jnp.where(vq.astype(bool)[:, None], dist, _BIG)
-        d1, d2, idx = matching._top2(dist)
+        # q: (N1, W) replicated; dbs: (shard_rows, W) this shard's rows.
+        # The 2-NN of one shard takes the path match_descriptors would.
+        d1, d2, idx, col_best = matching.nearest_two(
+            q, dbs, vq.astype(bool), vdb.astype(bool), binary=binary,
+            cross_check=cross_check,
+        )
         my = jax.lax.axis_index(DB_AXIS)
         gidx = idx + my * shard_rows
-        col_best = jnp.argmin(dist, axis=0).astype(jnp.int32)  # (rows,)
 
         # merge candidates across shards
         d1g = jax.lax.all_gather(d1, DB_AXIS)  # (S, N1)
         d2g = jax.lax.all_gather(d2, DB_AXIS)
         ig = jax.lax.all_gather(gidx, DB_AXIS)  # (S, N1)
-        colg = jax.lax.all_gather(col_best, DB_AXIS).reshape(-1)  # (N2,)
 
         cand_d = jnp.concatenate([d1g, d2g], axis=0)  # (2S, N1)
         cand_i = jnp.concatenate([ig, jnp.full_like(ig, -1)], axis=0)
@@ -75,7 +71,8 @@ def sharded_match(
         if ratio_test:
             keep = keep & (best_d < ratio * second_d)
         if cross_check:
-            keep = keep & (colg[best_i] == jnp.arange(q.shape[0]))
+            colg = jax.lax.all_gather(col_best.astype(jnp.int32), DB_AXIS)
+            keep = keep & (colg.reshape(-1)[best_i] == jnp.arange(q.shape[0]))
         return best_i.astype(jnp.int32), best_d, second_d, keep
 
     fn = jax.shard_map(

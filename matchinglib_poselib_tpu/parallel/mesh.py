@@ -1,18 +1,18 @@
 """Device mesh and collective wrappers.
 
 The reference has no distributed backend (SURVEY.md §2.4): its concurrency
-is OpenMP loops and an 8-thread pool. The TPU framework's scale-out design
+is OpenMP loops and an 8-thread pool. This framework's scale-out design
 replaces that with one `jax.sharding.Mesh` carrying two axes:
 
 - ``pairs``: data parallelism over image pairs / frames (the OpenMP
   keypoint-chunk loop of match_statOptFlow.cpp:1158 generalized to whole
   pairs; also the frame-stream sharding of §5.7)
-- ``db``: model-parallel sharding of descriptor databases for pod-wide kNN
+- ``db``: model-parallel sharding of descriptor databases for db-sharded kNN
   (replaces the NMSLIB thread pool, nmslib_matchers.h:330-345) and of
   point blocks in distributed BA.
 
-All collectives ride XLA (`psum`/`all_gather`/`ppermute`) over ICI within a
-slice and DCN across hosts; single-device runs degrade to no-ops because
+All collectives ride XLA (`psum`/`all_gather`/`ppermute`) over NVLink within
+a host and the network across hosts; single-device runs degrade to no-ops because
 shard_map over a 1-sized axis is the identity partitioning.
 """
 

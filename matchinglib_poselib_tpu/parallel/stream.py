@@ -11,7 +11,7 @@ distributed analogue of the reference's pose-history ranking
 
 Communication per step: one psum over (4+4+3+1) scalars per window — the
 quaternion outer-product matrix, translation sum and weight sum — riding
-ICI within a slice, DCN across hosts via jax.distributed.
+NVLink within a host, the network across hosts via jax.distributed.
 """
 
 from __future__ import annotations

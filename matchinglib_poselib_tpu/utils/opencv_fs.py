@@ -6,7 +6,7 @@ readMatchesFromDisk, :223 readCamParsFromDisk; file naming
 main.cpp:1522-1543: ``sequSingleFrameData_<n>.<ext>`` +
 ``matchSingleFrameData_<n>.<ext>`` + ``sequPars.<ext>``, ext one of
 yaml/yml/xml with optional .gz). This module reads and writes that format
-without OpenCV so the TPU framework can consume actual reference GT
+without OpenCV so this framework can consume actual reference GT
 campaigns anywhere.
 
 Supported node kinds (the full subset those readers touch):

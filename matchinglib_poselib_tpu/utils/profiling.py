@@ -5,7 +5,7 @@ gated by an integer verbosity (correspondences.cpp:221-240,361-376,399-410,
 496-507; stereo_pose_refinement.cpp:434-462; the noMatch CSV records the
 stage taxonomy of timeMeasurements, noMatch_poselib-test/main.cpp:61-73).
 
-This module reproduces that observability TPU-natively:
+This module reproduces that observability on the device:
 
 - ``StageTimer``: wall-clock per-stage timing with `block_until_ready` on
   the stage's outputs so device work is attributed to the stage that

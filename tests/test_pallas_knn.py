@@ -3,10 +3,12 @@
 The kernel (ops/pallas/knn.py) must be bit-identical on indices and
 distances (binary) / numerically equal (float) to the dense XLA
 formulation in ops/matching.py, including the guided-matching radius gate
-and mutual cross-check (both run in interpret mode on CPU here).
+and mutual cross-check. Here it runs in the Pallas interpreter; the
+compiled Triton kernel is checked on a GPU by tests_gpu/.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -34,7 +36,7 @@ def test_knn2_matches_xla_path(rng, binary):
         d1, d2, v1, v2, binary=binary, use_pallas=False
     )
     out = matching.match_descriptors(
-        d1, d2, v1, v2, binary=binary, use_pallas=True
+        d1, d2, v1, v2, binary=binary, use_pallas=True, interpret=True
     )
     m = np.asarray(ref.mask)
     np.testing.assert_array_equal(np.asarray(out.mask), m)
@@ -73,7 +75,9 @@ def test_knn2_guided_gate_matches_xla(rng):
         binary=True, guide_pred=pred, guide_rad=rad, pts2_xy=pts2
     )
     ref = matching.match_descriptors(d1, d2, v1, v2, use_pallas=False, **kwargs)
-    out = matching.match_descriptors(d1, d2, v1, v2, use_pallas=True, **kwargs)
+    out = matching.match_descriptors(
+        d1, d2, v1, v2, use_pallas=True, interpret=True, **kwargs
+    )
     m = np.asarray(ref.mask)
     assert m.sum() > 0
     np.testing.assert_array_equal(np.asarray(out.mask), m)
@@ -86,7 +90,7 @@ def test_knn2_all_invalid_columns(rng):
     d2 = _random_binary(rng, 64)
     out = matching.match_descriptors(
         d1, d2, jnp.ones(64, bool), jnp.zeros(64, bool),
-        binary=True, use_pallas=True,
+        binary=True, use_pallas=True, interpret=True,
     )
     assert int(out.n_matches) == 0
 
@@ -101,7 +105,7 @@ def test_knn2_large_unaligned_shapes(rng):
         d1, d2, v1, v2, binary=False, use_pallas=False
     )
     out = matching.match_descriptors(
-        d1, d2, v1, v2, binary=False, use_pallas=True
+        d1, d2, v1, v2, binary=False, use_pallas=True, interpret=True
     )
     m = np.asarray(ref.mask)
     np.testing.assert_array_equal(np.asarray(out.mask), m)
@@ -152,7 +156,7 @@ def test_knn2_all_candidates_gated(rng):
     )
     out = matching.match_descriptors(
         d1_packed, d2_packed, jnp.ones(n1, bool), valid2,
-        use_pallas=True, **kwargs,
+        use_pallas=True, interpret=True, **kwargs,
     )
     assert int(ref.n_matches) == 0
     assert int(out.n_matches) == 0
@@ -207,3 +211,72 @@ def test_knn2_packed_boundary_exactness(rng):
     assert int(idx[0]) == n2 - 1
     assert float(d1[0]) == 0.0
     assert float(d2[0]) == 1.0
+
+
+@pytest.mark.parametrize(
+    "n1,n2,binary",
+    [(1, 17, True), (65, 1000, True), (300, 129, False), (97, 257, False)],
+)
+def test_knn2_pads_unaligned_shapes(rng, n1, n2, binary):
+    """N1/N2 off the power-of-two tile grid: padded rows/columns never win."""
+    if binary:
+        s1 = rng.integers(0, 2, (n1, 256)) * 2.0 - 1.0
+        s2 = rng.integers(0, 2, (n2, 256)) * 2.0 - 1.0
+        dist = (256 - s1 @ s2.T) / 2
+        a, b = jnp.asarray(s1, jnp.bfloat16), jnp.asarray(s2, jnp.bfloat16)
+    else:
+        s1 = rng.normal(size=(n1, 40)).astype(np.float32)
+        s2 = rng.normal(size=(n2, 40)).astype(np.float32)
+        dist = ((s1[:, None, :] - s2[None]) ** 2).sum(-1)
+        a, b = jnp.asarray(s1), jnp.asarray(s2)
+    d1, d2, idx = knn.knn2(a, b, jnp.ones(n2, bool), binary=binary,
+                           bits=256 if binary else 0, interpret=True)
+    srt = np.sort(dist, axis=1)
+    np.testing.assert_array_equal(np.asarray(idx), dist.argmin(axis=1))
+    np.testing.assert_allclose(np.asarray(d1), srt[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(d2), srt[:, 1], rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "n1,n2,tn,tm",
+    [(1, 1, 64, 64), (150, 230, 64, 64), (2048, 2048, 64, 64),
+     (2048, 2048, 128, 128), (30720, 30720, 64, 64), (1000, 33000, 64, 128)],
+)
+def test_plan_tiles_cover_the_input(n1, n2, tn, tm):
+    n1p, n2p, splits, tps = knn.plan(n1, n2, tn, tm)
+    assert n1p % tn == 0 and n1p - n1 < tn
+    assert n2p == splits * tps * tm and n2p >= n2
+    # splits are cut so that no split is all padding
+    assert n2p - n2 < tps * tm
+    # about enough blocks to fill the card, unless each split is one tile
+    # already or the row tiles alone fill it
+    rows = n1p // tn
+    assert (rows * splits >= knn._MIN_BLOCKS // 2 or tps == 1
+            or (splits == 1 and rows >= knn._MIN_BLOCKS))
+
+
+def test_auto_path_is_chosen_by_shape_and_platform(rng, monkeypatch):
+    """use_pallas=None takes the kernel only where kernel_pays says so, and
+    only when the program is lowered for CUDA: on this CPU the lowered
+    program never contains it."""
+    # shipped choice: XLA at the pipeline's 2048^2, the kernel from 4096^2,
+    # for binary unguided matching only (the cases that were timed)
+    assert not matching.kernel_pays(2048, 2048)
+    assert matching.kernel_pays(4096, 4096)
+    assert matching.kernel_pays(30720, 30720)
+    assert not matching.kernel_pays(30720, 30720, binary=False)
+    assert not matching.kernel_pays(30720, 30720, guided=True)
+    d1 = _random_binary(rng, 100)
+    d2 = _random_binary(rng, 120)
+    v1, v2 = jnp.ones(100, bool), jnp.ones(120, bool)
+    monkeypatch.setattr(matching, "_KERNEL_MIN_CELLS", 1)
+    assert matching.kernel_pays(100, 120)
+    hlo = jax.jit(
+        lambda a, b: matching.match_descriptors(a, b, v1, v2).idx
+    ).lower(d1, d2).as_text()
+    assert "knn2" not in hlo
+    ref = matching.match_descriptors(d1, d2, v1, v2, use_pallas=False)
+    out = matching.match_descriptors(d1, d2, v1, v2)
+    np.testing.assert_array_equal(np.asarray(out.idx), np.asarray(ref.idx))
+    monkeypatch.setattr(matching, "_KERNEL_MIN_CELLS", 10**9)
+    assert not matching.kernel_pays(100, 120)

@@ -510,7 +510,7 @@ class TestSprtHistory:
 
 class TestFrameTracking:
     def test_tracking_follows_per_frame_jitter(self, rng):
-        """track_frame_pose (TPU-framework extension): on a rig with real
+        """track_frame_pose (extension beyond the reference): on a rig with real
         per-frame rotation jitter, the tracked pose follows each frame's
         own rotation better than the pool-mean pose, while the
         translation stays pool-stable (rotation-only stage 1 +

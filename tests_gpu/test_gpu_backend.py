@@ -1,12 +1,9 @@
-"""Real-TPU regression tier: compiled Pallas kernels + f32 solver numerics.
+"""GPU tier: the compiled Triton 2-NN kernel and f32 solver numerics.
 
-These are the paths bench.py exercises but the CPU suite cannot: the
-COMPILED (non-interpret) Pallas 2-NN kernel, the 5pt solvers' polynomial
-root-finding in f32 on the MXU/VPU, and one fused pipeline step with a
-content assertion against the KITTI calibration extrinsics.
+The CPU suite cannot compile the Pallas kernel (it runs it in interpret
+mode) nor run the 5pt solvers' polynomial root-finding on the card; these
+tests do both and compare against the XLA path.
 """
-
-import pathlib
 
 import numpy as np
 import pytest
@@ -16,11 +13,8 @@ import jax.numpy as jnp
 
 from matchinglib_poselib_tpu.ops import geometry as geo
 from matchinglib_poselib_tpu.ops import matching, solvers
-from matchinglib_poselib_tpu.ops.pallas import knn
 
-STEREO = pathlib.Path(
-    "/root/reference/matchinglib_poselib/source/tests/poselib-test/imgs/stereo"
-)
+pytestmark = pytest.mark.gpu
 
 
 def _random_packed(rng, n, w=8):
@@ -61,10 +55,10 @@ def _corrs(rng, R, t, n):
     [(150, 230), (512, 1024), (2048, 2048), (1000, 33000)],
 )
 def test_compiled_knn_binary_exact(rng, n1, n2):
-    """Compiled packed/general kernels == XLA dense path, several shapes.
+    """Compiled packed kernel == XLA dense path, bit for bit.
 
-    n2 = 33000 exceeds the old 32768 packed-column cap and exercises the
-    adaptive pack width on the real chip.
+    n2 = 33000 exceeds a 32768-column pack width and exercises the
+    adaptive pack width on the card.
     """
     d1 = _random_packed(rng, n1)
     d2 = _random_packed(rng, n2)
@@ -83,6 +77,9 @@ def test_compiled_knn_binary_exact(rng, n1, n2):
 
 
 def test_compiled_knn_float(rng):
+    """Float L2 runs in IEEE fp32 (Precision.HIGHEST) in the kernel, as in
+    the XLA path under the package default; only the summation order
+    differs, so distances agree to ~1e-4 and the matches exactly."""
     d1 = jnp.asarray(rng.normal(size=(301, 128)).astype(np.float32))
     d2 = jnp.asarray(rng.normal(size=(443, 128)).astype(np.float32))
     v = jnp.ones(443, bool)
@@ -94,6 +91,8 @@ def test_compiled_knn_float(rng):
     np.testing.assert_array_equal(np.asarray(out.mask), m)
     np.testing.assert_array_equal(np.asarray(out.idx)[m],
                                   np.asarray(ref.idx)[m])
+    np.testing.assert_allclose(np.asarray(out.distance)[m],
+                               np.asarray(ref.distance)[m], rtol=0, atol=1e-2)
 
 
 def test_compiled_knn_guided_gate(rng):
@@ -122,7 +121,7 @@ def test_compiled_knn_guided_gate(rng):
 
 def test_compiled_knn_all_gated(rng):
     """Empty radius gate on the compiled kernel: zero matches (the packed
-    invalid-sentinel regression, ADVICE r3)."""
+    invalid-sentinel regression)."""
     n1, n2 = 64, 256
     d1 = _random_packed(rng, n1)
     d2 = jnp.asarray(np.tile(np.asarray(d1), (n2 // n1, 1)))
@@ -137,14 +136,42 @@ def test_compiled_knn_all_gated(rng):
     assert int(out.n_matches) == 0
 
 
+def test_sharded_match_takes_the_kernel(rng):
+    """The db-sharded 2-NN picks the kernel per shard by the same rule as
+    match_descriptors (here one shard of 8192 rows, above the 4096^2
+    threshold) and returns the single-device result bit for bit."""
+    from matchinglib_poselib_tpu.parallel import mesh as pmesh
+    from matchinglib_poselib_tpu.parallel.matching import sharded_match
+
+    n1, n2 = 4096, 8192
+    assert matching.kernel_pays(n1, n2)
+    dq, ddb = _random_packed(rng, n1), _random_packed(rng, n2)
+    ddb = ddb.at[:n1].set(dq ^ jnp.uint32(3))  # a partner 2 bits away
+    vq, vdb = jnp.ones(n1, bool), jnp.asarray(rng.random(n2) > 0.1)
+    mesh = pmesh.make_mesh(jax.devices()[:1], db_parallelism=1)
+    fn = jax.jit(lambda *a: sharded_match(mesh, *a))
+    # the Pallas kernel lowers to a Triton custom call
+    assert "triton" in fn.lower(dq, ddb, vq, vdb).as_text()
+    out = fn(dq, ddb, vq, vdb)
+    ref = matching.match_descriptors(dq, ddb, vq, vdb, use_pallas=False,
+                                     ratio_fallback=False)
+    m = np.asarray(ref.mask)
+    assert m.sum() > n1 // 2
+    np.testing.assert_array_equal(np.asarray(out.mask), m)
+    np.testing.assert_array_equal(np.asarray(out.idx)[m],
+                                  np.asarray(ref.idx)[m])
+    np.testing.assert_array_equal(np.asarray(out.distance)[m],
+                                  np.asarray(ref.distance)[m])
+
+
 # ---------------------------------------------------------------------------
-# 5pt solvers in f32 on TPU
+# 5pt solvers in f32 on the GPU
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("solver", ["nister", "stewenius"])
-def test_5pt_f32_validity_on_tpu(rng, solver):
-    """Batched minimal 5pt on-chip: the true pose must appear among the
+def test_5pt_f32_validity_on_gpu(rng, solver):
+    """Batched minimal 5pt on the card: the true pose must appear among the
     solutions for >=90% of noise-free minimal samples, with Sampson
     residuals at f32 noise level."""
     B = 256
@@ -184,8 +211,8 @@ def test_5pt_f32_validity_on_tpu(rng, solver):
     assert hits / B > 0.9, f"true-E recovery rate {hits / B:.2f}"
 
 
-def test_polish_f32_converges_on_tpu(rng):
-    """LM Sampson polish on-chip: recovers a pose perturbed by 1 degree."""
+def test_polish_f32_converges_on_gpu(rng):
+    """LM Sampson polish on the card: recovers a pose perturbed by 1 degree."""
     from matchinglib_poselib_tpu.ops import refine
 
     R, t = _rand_pose(rng, max_deg=10.0)
@@ -207,49 +234,3 @@ def test_polish_f32_converges_on_tpu(rng):
     assert float(rd) < 0.1, f"rot {float(rd)}"
     assert float(td) < 0.5, f"t {float(td)}"
     assert int(jnp.sum(inl)) > 450
-
-
-# ---------------------------------------------------------------------------
-# fused pipeline step content check
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.skipif(not STEREO.exists(), reason="reference data missing")
-def test_fused_step_kitti_content():
-    """One fused detect+match+pose step on the real chip must reproduce
-    the calibration extrinsics (rot < 1 deg, t_ang < 2 deg)."""
-    from matchinglib_poselib_tpu.config import (
-        DescriptorConfig, DetectorConfig, MatchingConfig, PoseConfig,
-        RobustConfig,
-    )
-    from matchinglib_poselib_tpu.models import pipeline
-    from matchinglib_poselib_tpu.utils import io
-
-    i1 = jnp.asarray(io.load_image_gray(STEREO / "left_0000000000.png"))
-    i2 = jnp.asarray(io.load_image_gray(STEREO / "right_0000000000.png"))
-    c = io.load_kitti_calib(STEREO / "calib_cam_to_cam.txt")
-    det = DetectorConfig(kind="FAST", max_keypoints=2048, fast_threshold=12.0)
-    desc = DescriptorConfig(kind="ORB")
-    match = MatchingConfig(matcher_name="GMBSOF")
-    pose_cfg = PoseConfig(robust=RobustConfig(batch_hypotheses=96,
-                                              max_batches=12))
-
-    def step(a, b):
-        corr = pipeline.get_correspondences(a, b, det, desc, match)
-        return pipeline.estimate_pose(
-            corr.pts1, corr.pts2, corr.mask, corr.quality,
-            jnp.asarray(c.K0, jnp.float32), jnp.asarray(c.K1, jnp.float32),
-            jnp.asarray(c.dist0, jnp.float32),
-            jnp.asarray(c.dist1, jnp.float32),
-            pose_cfg, jax.random.PRNGKey(0),
-        )
-
-    res = jax.jit(step)(i1, i2)
-    rd, td, _ = geo.compare_poses(
-        jnp.asarray(c.R, jnp.float32),
-        jnp.asarray(c.t / np.linalg.norm(c.t), jnp.float32),
-        res.R, res.t,
-    )
-    assert int(res.n_inliers) > 300
-    assert float(rd) < 1.0, f"rot diff {float(rd)} deg"
-    assert float(td) < 2.0, f"t_ang {float(td)} deg"

@@ -133,7 +133,7 @@ def main():
             p = p.with_suffix(".pgm")
         if p.exists():
             img = io.load_image_gray(p)
-            # crop to a TPU-friendly fixed size for one compiled program
+            # crop to a fixed size for one compiled program
             img = np.asarray(img)[:480, :640]
             scenes.append((name, img))
     if not scenes:
